@@ -1,0 +1,130 @@
+"""The streaming device step (port of ``continuous_clustering_tpu/models/step.py``,
+host-insertion variant ``pipeline_step_block`` only).
+
+Per column batch: ingest -> ground segmentation -> association and
+completion -> publish slab, join tables and the packed meta vector.  The
+step's scalars are packed into ONE i32 vector (``StepInfo.meta``) so that
+the host reads them with a single device-to-host copy.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from continuous_clustering_tpu.config import Config
+
+from ..ops.association import CompleteResult, associate_and_complete
+from ..ops.ground_segmentation import SegmentInputs, ground_segment_columns
+from ..ops.ingest import ColumnBlock, ingest_columns
+from ..ops.readout import N_SLAB_ROWS, join_tables, packed_readout
+from ..ops.state import RingState
+
+# meta vector lanes
+(META_GCOL0, META_NCOLS, META_FU_OLD, META_FU_NEW, META_NUM_NEW,
+ META_COUNTER_OLD, META_RESET, META_OVERFLOW, META_CC_FAILED,
+ META_CC_ROUNDS) = range(10)
+N_META = 10
+
+
+class StepInfo(NamedTuple):
+    meta: torch.Tensor      # (N_META [+ 2K],) i32; join tables ride behind the lanes
+    slab: torch.Tensor      # head: publish-window columns [fu_old, fu_old + head)
+    slab_ext: torch.Tensor  # tail: columns [fu_old + head, fu_old + W)
+
+    @property
+    def gcol0(self):
+        return self.meta[..., META_GCOL0]
+
+    @property
+    def n_cols(self):
+        return self.meta[..., META_NCOLS]
+
+    @property
+    def fu_old(self):
+        return self.meta[..., META_FU_OLD]
+
+    @property
+    def fu_new(self):
+        return self.meta[..., META_FU_NEW]
+
+    @property
+    def num_new_clusters(self):
+        return self.meta[..., META_NUM_NEW]
+
+    @property
+    def cluster_counter_old(self):
+        return self.meta[..., META_COUNTER_OLD]
+
+    @property
+    def reset_required(self):
+        return self.meta[..., META_RESET]
+
+    @property
+    def overflow(self):
+        return self.meta[..., META_OVERFLOW]
+
+    @property
+    def cc_failed(self):
+        return self.meta[..., META_CC_FAILED]
+
+    @property
+    def cc_rounds(self):
+        return self.meta[..., META_CC_ROUNDS]
+
+
+class SegPoses(NamedTuple):
+    """Per-column trigger poses for segmentation (host-derived)."""
+
+    sensor_pos: torch.Tensor  # (B, 3) f32
+    ego_rot: torch.Tensor     # (B, 3, 3) f32
+    ego_trans: torch.Tensor   # (B, 3) f32
+
+
+def pack_meta(gcol0, n_cols, fu_old, fu_new, num_new, counter_old,
+              reset_required, overflow, cc_failed, cc_rounds,
+              join_tabs=None) -> torch.Tensor:
+    vals = [gcol0, n_cols, fu_old, fu_new, num_new, counter_old,
+            reset_required, overflow, cc_failed, cc_rounds]
+    head = torch.stack([torch.as_tensor(v).reshape(()).to(torch.int32) for v in vals])
+    if join_tabs is None:
+        return head
+    return torch.cat([head, join_tabs.reshape(-1)])
+
+
+def _publish_slab(state: RingState, fu_old, slab_cols: int, head_cols: int):
+    """Packed readout of [fu_old, fu_old + slab_cols), split at ``head_cols``."""
+    R = state.num_rows
+    empty = torch.zeros((N_SLAB_ROWS, R, 0), dtype=torch.int32, device=state.device)
+    if not slab_cols:
+        return empty, empty
+    full = packed_readout(state, fu_old.clamp_min(0) % state.ring_cols, slab_cols)
+    if head_cols <= 0 or head_cols >= slab_cols:
+        return full, empty
+    return full[:, :, :head_cols], full[:, :, head_cols:]
+
+
+def pipeline_step_block(config: Config, state: RingState, block: ColumnBlock,
+                        seg_poses: SegPoses, hsg: torch.Tensor, batch_cols: int,
+                        slab_cols: int = 0, slab_head: int = 0):
+    """Ingest a dense finished-column block, then segmentation, association
+    and completion.  Updates ``state`` in place; returns (state, StepInfo)."""
+    state = ingest_columns(config, state, block, batch_cols)
+    seg_in = SegmentInputs(
+        gcol0=block.gcol0, n_cols=block.n_cols,
+        sensor_pos=seg_poses.sensor_pos, ego_rot=seg_poses.ego_rot,
+        ego_trans=seg_poses.ego_trans, height_sensor_to_ground=hsg,
+    )
+    state = ground_segment_columns(config, state, seg_in, batch_cols)
+    counter_old = state.cluster_counter
+    cres: CompleteResult = associate_and_complete(
+        config, state, block.gcol0, block.n_cols, batch_cols)
+    state = cres.state
+    slab, slab_ext = _publish_slab(state, cres.fu_old, slab_cols, slab_head)
+    meta = pack_meta(
+        block.gcol0, block.n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
+        counter_old, state.reset_required, state.overflow, state.cc_failed,
+        cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
+    )
+    return state, StepInfo(meta=meta, slab=slab, slab_ext=slab_ext)

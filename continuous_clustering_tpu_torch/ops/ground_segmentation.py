@@ -1,0 +1,237 @@
+"""Ground point segmentation over a batch of columns (port of
+``continuous_clustering_tpu/ops/ground_segmentation.py``).
+
+The two ``lax.scan`` passes over rows become Python loops over the R rows,
+vectorized across the B columns of the batch; the cross-column forward fill
+of the inclination diffs is a ``cummax`` of valid positions.  Exact: every
+step is the same f32 elementwise arithmetic as the JAX version.  On the card
+the row loops cost a few thousand small launches per step; a fused kernel is
+a later change.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from continuous_clustering_tpu.config import Config
+from continuous_clustering_tpu.constants import (
+    DBG_DARKRED, DBG_GRAY, DBG_GREEN, DBG_LIGHTGRAY, DBG_ORANGE, DBG_RED,
+    DBG_VIOLET, DBG_WHITE, DBG_YELLOW, DBG_YELLOWGREEN, GP_EGO_VEHICLE,
+    GP_FOG, GP_GROUND, GP_OBSTACLE, GP_UNKNOWN,
+)
+
+from .state import RingState, ring_put, ring_read
+
+
+class SegmentInputs(NamedTuple):
+    gcol0: torch.Tensor                    # () i32
+    n_cols: torch.Tensor                   # () i32
+    sensor_pos: torch.Tensor               # (B, 3) f32
+    ego_rot: torch.Tensor                  # (B, 3, 3) f32
+    ego_trans: torch.Tensor                # (B, 3) f32
+    height_sensor_to_ground: torch.Tensor  # () f32
+
+
+def _ffill_columns(values: torch.Tensor, valid: torch.Tensor, carry: torch.Tensor):
+    """Forward-fill along columns, seeded by ``carry`` (R,); returns
+    (filled (R, B), new carry (R,))."""
+    v = torch.cat([carry[:, None], values], dim=1)
+    m = torch.cat([~torch.isnan(carry)[:, None], valid], dim=1)
+    pos = torch.arange(v.shape[1], device=v.device).expand_as(v)
+    last = torch.cummax(torch.where(m, pos, -1), dim=1).values
+    filled = torch.where(last >= 0, v.gather(1, last.clamp_min(0)), float("nan"))
+    return filled[:, 1:], filled[:, -1]
+
+
+def _select(default: int, shape, device, *cases) -> torch.Tensor:
+    """Nested-where label selection: ``cases`` are (mask, value) pairs in
+    DEcreasing priority; the first matching mask wins."""
+    out = torch.full(shape, default, dtype=torch.int32, device=device)
+    for mask, value in reversed(cases):
+        out = out.masked_fill(mask, value)
+    return out
+
+
+def ground_segment_columns(
+    config: Config, state: RingState, inputs: SegmentInputs, batch_size: int
+) -> RingState:
+    """Segment columns [gcol0, gcol0 + n_cols) and write the results to the
+    ring in place."""
+    R, B, rc = state.num_rows, batch_size, state.ring_cols
+    dev = state.device
+    num_cols = config.range_image.num_columns
+    az_width = float(np.float32(2.0 * math.pi / num_cols))
+    g = config.ground_segmentation
+    cl = config.clustering
+
+    cols = inputs.gcol0 + torch.arange(B, dtype=torch.int32, device=dev)
+    col_valid = torch.arange(B, device=dev) < inputs.n_cols
+    lc0 = inputs.gcol0 % rc
+
+    def take(arr):
+        return ring_read(arr, lc0, B)
+
+    dist = take(state.distance)
+    inc_raw = take(state.inclination)
+    xs, ys, zs = take(state.x), take(state.y), take(state.z)
+    intensity = take(state.intensity)
+    cont_az = take(state.cont_az)
+    gcol_cell = take(state.gcol)
+
+    overflow = torch.any((gcol_cell != -1) & (gcol_cell != cols[None, :]) & col_valid[None, :])
+
+    # cross-column inclination diffs; the bottom row diffs against 0.0
+    inc_below = torch.cat([inc_raw[1:], torch.zeros((1, B), device=dev)], dim=0)
+    diffs = inc_raw - inc_below
+    sc_incl, new_incl_carry = _ffill_columns(
+        diffs, ~torch.isnan(diffs) & col_valid[None, :], state.incl_diffs)
+
+    cell_nan = torch.isnan(dist)
+    sp = inputs.sensor_pos
+    xr, yr = xs - sp[:, 0][None, :], ys - sp[:, 1][None, :]
+    zrel = zs - sp[:, 2][None, :]
+    d = torch.sqrt(xr * xr + yr * yr)
+
+    fog = torch.zeros_like(cell_nan)
+    if g.fog_filtering_enabled:
+        fog = (~cell_nan & (intensity < g.fog_filtering_intensity_below)
+               & (dist < g.fog_filtering_distance_below)
+               & (inc_raw > g.fog_filtering_inclination_above))
+
+    er, et = inputs.ego_rot, inputs.ego_trans
+    pe = [er[:, i, 0][None, :] * xs + er[:, i, 1][None, :] * ys
+          + er[:, i, 2][None, :] * zs + et[:, i][None, :] for i in range(3)]
+    ego = (~cell_nan & ~fog
+           & (pe[0] < g.length_ref_to_front_end) & (pe[0] > g.length_ref_to_rear_end)
+           & (pe[1] < g.width_ref_to_left_mirror) & (pe[1] > g.width_ref_to_right_mirror)
+           & (pe[2] < g.height_ref_to_maximum) & (pe[2] > g.height_ref_to_ground))
+    hsg = inputs.height_sensor_to_ground
+    skip_all = cell_nan | fog | ego
+
+    # ---- classification pass, bottom (r = R-1) to top (r = 0) -----------
+    zeros_b = torch.zeros(B, dtype=torch.bool, device=dev)
+    first_found, first_obst = zeros_b, zeros_b
+    lg_d = torch.zeros(B, dtype=torch.float32, device=dev)
+    lg_z = torch.ones(B, dtype=torch.float32, device=dev) * hsg
+    prev_d = torch.zeros(B, dtype=torch.float32, device=dev)
+    prev_z = torch.zeros(B, dtype=torch.float32, device=dev)
+    prev_label = torch.full((B,), DBG_WHITE, dtype=torch.int32, device=dev)
+    inc_below_stored = torch.full((B,), float("nan"), device=dev)
+    labels = torch.empty((R, B), dtype=torch.int32, device=dev)
+    debug = torch.empty((R, B), dtype=torch.int32, device=dev)
+    events = torch.empty((R, B), dtype=torch.bool, device=dev)
+    inc_stored_all = torch.empty((R, B), dtype=torch.float32, device=dev)
+    nan_b = torch.full((B,), float("nan"), device=dev)
+
+    for r in range(R - 1, -1, -1):
+        r_nan, r_fog, r_ego = cell_nan[r], fog[r], ego[r]
+        r_d, r_z = d[r], zrel[r]
+        if config.range_image.supplement_inclination_angle_for_nan_cells and r != R - 1:
+            supplied = inc_below_stored + sc_incl[r]
+        else:
+            supplied = nan_b
+        inc_stored = torch.where(r_nan, supplied, inc_raw[r])
+
+        skip = skip_all[r]
+        is_first = ~first_found & ~skip
+        hog = r_z - hsg
+        first_ground = (is_first & (hog > g.first_ring_as_ground_min_allowed_z_diff)
+                        & (hog < g.first_ring_as_ground_max_allowed_z_diff))
+        first_obstacle_pt = is_first & ~first_ground
+
+        normal = first_found & ~skip
+        dxp = r_d - prev_d
+        dzp = r_z - prev_z
+        slope_prev = dzp / dxp
+        flat_prev = (torch.abs(slope_prev) < g.max_slope) & (dxp > 0)
+        if g.use_terrain:
+            flat_prev = flat_prev & (dxp < 5.0)
+        dxl = r_d - lg_d
+        dzl = r_z - lg_z
+        slope_lg = dzl / dxl
+        flat_lg = (torch.abs(slope_lg) < g.max_slope) & (dxl > 0)
+
+        green = normal & ~first_obst & flat_prev
+        if g.use_terrain:
+            yellowgreen = torch.zeros_like(green)
+            yellow = torch.zeros_like(green)
+        else:
+            yellowgreen = normal & ~green & first_obst & flat_prev & flat_lg
+            yellow = (normal & ~green & ~yellowgreen
+                      & (torch.abs(dxl) < g.ground_because_close_to_last_certain_ground_max_dist_diff)
+                      & (torch.abs(dzl) < g.ground_because_close_to_last_certain_ground_max_z_diff))
+
+        ground = green | yellowgreen | yellow | first_ground
+        obstacle = (normal & ~ground) | first_obstacle_pt
+
+        labels[r] = _select(GP_UNKNOWN, (B,), dev, (r_fog, GP_FOG), (r_ego, GP_EGO_VEHICLE),
+                            (ground, GP_GROUND), (obstacle, GP_OBSTACLE))
+        dbg = _select(DBG_WHITE, (B,), dev, (r_fog, DBG_LIGHTGRAY), (r_ego, DBG_VIOLET),
+                      (first_ground, DBG_GRAY), (first_obstacle_pt, DBG_ORANGE),
+                      (green, DBG_GREEN), (yellowgreen, DBG_YELLOWGREEN),
+                      (yellow, DBG_YELLOW), (obstacle, DBG_RED))
+        debug[r] = dbg
+        events[r] = normal & ~ground
+        inc_stored_all[r] = inc_stored
+
+        update_lg = ((green | yellowgreen)
+                     & (slope_prev > g.last_ground_point_slope_higher_than)
+                     & (torch.abs(dxp) < g.last_ground_point_distance_smaller_than)
+                     & (prev_label != DBG_YELLOW)) | first_ground
+        lg_d = torch.where(update_lg, r_d, lg_d)
+        lg_z = torch.where(update_lg, r_z, lg_z)
+        first_obst = torch.where(is_first, first_obstacle_pt, first_obst | (normal & obstacle))
+        first_found = first_found | ~skip
+        prev_d = torch.where(~skip, r_d, prev_d)
+        prev_z = torch.where(~skip, r_z, prev_z)
+        prev_label = torch.where(~skip, dbg, prev_label)
+        inc_below_stored = inc_stored
+
+    # ---- backtrack pass: retroactive "close lower ground is obstacle" ----
+    # each event at row r relabels the contiguous run of qualifying rows
+    # below it (rows > r), against the labels as earlier events left them
+    thr = g.obstacle_because_next_certain_obstacle_max_dist_diff
+    for r in range(R - 2, -1, -1):
+        lab_b, dbg_b, d_b = labels[r + 1:], debug[r + 1:], d[r + 1:]
+        cont = (dbg_b == DBG_YELLOW) | (
+            (lab_b == GP_GROUND) & (torch.abs(d[r][None, :] - d_b) < thr))
+        in_run = torch.cumprod(cont.to(torch.int32), dim=0).to(torch.bool)
+        relabel = in_run & (lab_b == GP_GROUND) & events[r][None, :]
+        labels[r + 1:] = lab_b.masked_fill(relabel, GP_OBSTACLE)
+        debug[r + 1:] = dbg_b.masked_fill(relabel, DBG_DARKRED)
+
+    # ---- is_ignored flags --------------------------------------------------
+    row_idx = torch.arange(R, dtype=torch.int32, device=dev)[:, None]
+    ignored = cell_nan | (labels != GP_OBSTACLE) | (dist < 1.0 * cl.max_distance)
+    if cl.ignore_points_with_too_big_inclination_angle_diff:
+        gate = (row_idx < R - 1) & (_atan2_f32(cl.max_distance, dist) < sc_incl)
+        ignored = ignored | gate
+    if cl.ignore_points_in_chessboard_pattern:
+        ignored = ignored | ((cols[None, :] % 2 == 0) != (row_idx % 2 == 0))
+
+    # ---- NaN-cell continuous azimuth refill --------------------------------
+    gcol_rel = (cols - state.origin_rot * num_cols).to(torch.float32)
+    nan_az = (gcol_rel[None, :] + 0.5) * az_width
+    cont_az_out = torch.where(cell_nan, nan_az, cont_az)
+
+    wmask = col_valid[None, :].expand(R, B)
+    ring_put(state.ground_label, lc0, wmask, labels)
+    ring_put(state.debug_label, lc0, wmask, debug)
+    ring_put(state.is_ignored, lc0, wmask, ignored)
+    ring_put(state.inclination, lc0, wmask, inc_stored_all)
+    ring_put(state.cont_az, lc0, wmask, cont_az_out)
+    ring_put(state.gcol, lc0, wmask, cols[None, :].expand(R, B))
+    state.incl_diffs = torch.where(inputs.n_cols > 0, new_incl_carry, state.incl_diffs)
+    state.overflow = state.overflow | overflow
+    return state
+
+
+def _atan2_f32(y: float, x: torch.Tensor) -> torch.Tensor:
+    """f32 ``atan2(y, x)`` evaluated in f64 and rounded once, so the CPU and
+    the card give the same bits (their f32 atan2 may differ in the last ulp)."""
+    return torch.atan2(torch.tensor(np.float32(y), dtype=torch.float64, device=x.device),
+                       x.to(torch.float64)).to(torch.float32)
