@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the native host library and the two CUDA kernels from the sources in
-this checkout (into ``continuous_clustering_tpu_torch/build/``), then:
+this checkout (into ``continuous_clustering_tpu_torch/build/``, the builds
+side by side), then:
 
 1. prints the card's name and power limit and the build times;
 2. holds each kernel against its plain PyTorch twin on the card, on a real
@@ -14,15 +15,25 @@ this checkout (into ``continuous_clustering_tpu_torch/build/``), then:
    32 x 220 (partition >= 0.995, ground labels exact) and on the serpentine
    stream (converges, stays one component);
 4. streams the KITTI configuration (64 x 2200, firing batch 384) through
-   ``ContinuousClustering.add_firing`` on the card, with launch counters
-   reset just before, and holds the published partition against the same
-   stream run on the CPU (the plain twins).
+   ``ContinuousClustering.add_firing`` (host insertion) on the card and
+   holds the published partition against the same stream run on the CPU
+   (the plain twins);
+5. streams 3 revolutions of the same configuration through device insertion
+   (``insertion="device"``, ``pipeline_step``), times it, breaks one step
+   down, and holds the partition against the CPU;
+6. checkpoints half of the phase-3 stream on the card, resumes it in a fresh
+   facade and holds the partition against the uninterrupted run (>= 0.99);
+7. runs the periodic block runner (``tools/bench_setup.py``) on the three
+   throughput scenes and reports the steady rate of each.
 
-Every phase raises on failure.  The second-to-last line is a JSON object
-with one entry per kernel; the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Exits non-zero, printing no result, without a CUDA device or outside a
-checkout of the repository.  Imports nothing of JAX.
+Phases 3 to 7 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each must have launched both
+kernels.  Every phase raises on failure.  The line before the last is a JSON
+object with one entry per kernel (launches summed over phases 3-7); the last
+line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``.  Exits non-zero, printing no result, without a CUDA device or
+outside a checkout of the repository.  Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -41,6 +53,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 B_FIRINGS = 384            # firing batch of the streamed KITTI configuration
 FULL_ROWS, SMALL_ROWS, SMALL_COLS = 64, 32, 220
+# one NVIDIA H100 SXM (data sheet): HBM rate and the f32 rate outside the
+# tensor cores, the roofline of both kernels (neither uses the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per candidate pair of K1's wedge walk: the inclination
+# test (sub, abs, compare), the squared distance (3 sub, 3 mul, 2 add) and
+# the radius compare
+K1_OPS_PER_PAIR = 12
 
 
 def check(cond, msg: str) -> None:
@@ -66,9 +86,30 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+class Launches:
+    """Kernel launches of the driven phases: the counters are set to 0 just
+    before a phase and added up just after it."""
+
+    def __init__(self):
+        from continuous_clustering_tpu_torch.ops import cc_cuda
+
+        self.cc = cc_cuda
+        self.total = {k: 0 for k in cc_cuda.LAUNCHES}
+
+    def start(self):
+        self.cc.reset_launch_counts()
+
+    def stop(self, phase: str):
+        got = dict(self.cc.LAUNCHES)
+        check(all(v > 0 for v in got.values()), f"{phase}: a kernel was not launched: {got}")
+        for k, v in got.items():
+            self.total[k] += v
+        return got
+
+
 def kitti_stream(num_rows, num_cols, n_rev, seed=5, num_boxes=14):
     """Firings of ``n_rev`` revolutions of one synthetic KITTI-like scene."""
-    from continuous_clustering_tpu.evaluation.synthetic import (
+    from continuous_clustering_tpu_torch.evaluation.synthetic import (
         frame_to_firings, make_scene, raycast_frame)
 
     scene = make_scene(num_boxes=num_boxes, seed=seed, spread=30.0)
@@ -81,7 +122,7 @@ def kitti_stream(num_rows, num_cols, n_rev, seed=5, num_boxes=14):
 
 
 def small_config():
-    from continuous_clustering_tpu.config import kitti_config
+    from continuous_clustering_tpu_torch.config import kitti_config
 
     cfg = kitti_config()
     return cfg.replace(
@@ -90,30 +131,44 @@ def small_config():
         clustering=dataclasses.replace(cfg.clustering, stop_after_association_enabled=False))
 
 
-def run_facade(cfg, num_rows, firings, device, batch, stop_after=None):
-    """Stream ``firings`` through the port facade; returns (labels by point,
-    ground labels by point, clusters, facade).  With ``stop_after``, only
-    columns published before the firing of that index count."""
+def make_facade(cfg, num_rows, device, batch, insertion="host"):
     from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
 
-    pipe = ContinuousClustering(cfg, firing_batch_size=batch, device=device)
+    pipe = ContinuousClustering(cfg, firing_batch_size=batch, device=device,
+                                insertion=insertion)
     pipe.reset(num_rows)
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
-    labels, ground, clusters = {}, {}, []
-    live = {"on": True}
+    return pipe
+
+
+def collect(pipe, labels, ground=None, clusters=None, live=None):
+    """Register callbacks that record each published point's cluster id (and
+    ground label) and each published cluster's size."""
 
     def on_col(a, b, ground_only):
-        if ground_only or not live["on"]:
+        if ground_only or (live is not None and not live["on"]):
             return
         cloud = pipe.get_columns(a, b)
         valid = cloud["globally_unique_point_index"] != np.iinfo(np.uint64).max
         for u, i, g in zip(cloud["globally_unique_point_index"][valid],
                            cloud["id"][valid], cloud["ground_point_label"][valid]):
             labels[int(u)] = int(i)
-            ground[int(u)] = int(g)
+            if ground is not None:
+                ground[int(u)] = int(g)
 
     pipe.set_finished_column_callback(on_col)
-    pipe.set_finished_cluster_callback(lambda pts, stamp: clusters.append((pts, stamp)))
+    if clusters is not None:
+        pipe.set_finished_cluster_callback(lambda pts, stamp: clusters.append(len(pts)))
+
+
+def run_facade(cfg, num_rows, firings, device, batch, stop_after=None, insertion="host"):
+    """Stream ``firings`` through the port facade; returns (labels by point,
+    ground labels by point, cluster sizes, facade).  With ``stop_after``,
+    only columns published before the firing of that index count."""
+    pipe = make_facade(cfg, num_rows, device, batch, insertion)
+    labels, ground, clusters = {}, {}, []
+    live = {"on": True}
+    collect(pipe, labels, ground, clusters, live)
     eye = np.eye(4)
     for k, f in enumerate(firings):
         if stop_after is not None and k == stop_after:
@@ -130,17 +185,100 @@ def real_window(cfg, device, firings):
 
     from continuous_clustering_tpu_torch.ops.association import window_arrays
 
-    from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
-
-    pipe = ContinuousClustering(cfg, firing_batch_size=B_FIRINGS, device=device)
-    pipe.reset(FULL_ROWS)
-    pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
+    pipe = make_facade(cfg, FULL_ROWS, device, B_FIRINGS)
     for f in firings[: 3 * cfg.range_image.num_columns // 2]:
         pipe.add_firing(f, np.eye(4))
     B = B_FIRINGS + 32
     state = pipe.state
     gcol0 = state.first_unfinished - B
     return window_arrays(cfg, state, gcol0, torch.tensor(B, dtype=torch.int32, device=device), B)
+
+
+def agreement_with_cpu(gpu_labels, cpu_labels, what):
+    from continuous_clustering_tpu_torch.evaluation.partition import partition_agreement
+
+    common = set(cpu_labels) & set(gpu_labels)
+    agree = partition_agreement(
+        {k: cpu_labels[k] for k in common}, {k: gpu_labels[k] for k in common})
+    check(len(common) == len(cpu_labels) > 10000,
+          f"{what}: {len(common)} of the CPU leg's {len(cpu_labels)} points published on the card")
+    check(agree == 1.0, f"{what}: card vs CPU partition agreement {agree}")
+    return agree, len(common)
+
+
+def build_all():
+    """Build the native library and the kernels side by side; returns the
+    seconds each took."""
+    from continuous_clustering_tpu_torch import native
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+
+    times, errors = {}, []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+        times[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=timed, args=("native", native.load)),
+               threading.Thread(target=timed, args=("kernels", cc_cuda.load_kernels))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return times
+
+
+def kernel_bounds(win, bits, rounds, H, V):
+    """Least time the card could take for each kernel's work on this
+    window: the larger of bytes over the HBM rate and f32 operations over
+    the f32 rate.  Bytes: each input read once, each output written once.
+    Operations: K1's candidate pairs of this window (active batch points x
+    column offsets up to their wedge x 2V + 1 row offsets); K2's
+    per-round edge relaxations and scans of this run's rounds (integer min,
+    counted at the f32 rate)."""
+    R, WCOL = win.active_w.shape
+    B = WCOL - H
+    f32 = 4
+    k1_bytes = (4 * R * WCOL * f32 + R * WCOL * 1 + 2 * R * B * f32
+                + bits.numel() * f32)
+    active_b = win.active_w[:, H:]
+    pairs = int(((win.wp.clamp(max=H) + 1) * active_b).sum()) * (2 * V + 1)
+    k1_ops = pairs * K1_OPS_PER_PAIR
+    n_edges = int(np.unpackbits(bits.cpu().numpy().view(np.uint8)).sum())
+    k2_bytes = bits.numel() * f32 + 2 * R * WCOL * f32 + 4 + 8
+    k2_ops = int(rounds) * (n_edges + 4 * R * WCOL)
+    out = {}
+    for name, nbytes, ops in (("edge_bits", k1_bytes, k1_ops), ("window_cc", k2_bytes, k2_ops)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        out[name] = dict(bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, ops=ops)
+    return out
+
+
+def device_profile(fn):
+    """(device kernels launched, device busy ms, wall ms) of ``fn`` under
+    ``torch.profiler``; None when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not kernels or busy <= 0:
+        return None
+    return len(kernels), busy, wall
 
 
 def main() -> int:
@@ -160,11 +298,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from continuous_clustering_tpu.config import kitti_config
-    from continuous_clustering_tpu.evaluation.partition import partition_agreement
-    from continuous_clustering_tpu.ops.oracle import OracleContinuousClustering
-    from continuous_clustering_tpu_torch import native
+    from continuous_clustering_tpu_torch.config import kitti_config
+    from continuous_clustering_tpu_torch.evaluation.partition import partition_agreement
+    from continuous_clustering_tpu_torch.evaluation.synthetic import (
+        frame_to_firings, make_scene, raycast_frame)
+    from continuous_clustering_tpu_torch.models.checkpoint import load_state, save_state
     from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.ops.oracle import OracleContinuousClustering
+    from continuous_clustering_tpu_torch.tools import bench_setup
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -174,14 +315,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi)
-    t0 = time.perf_counter()
-    native.load()
-    t_native = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cc_cuda.load_kernels()
-    t_kernels = time.perf_counter() - t0
-    print(f"phase 1: {kind}; built native lib in {t_native:.2f} s, CUDA kernels in "
-          f"{t_kernels:.2f} s")
+    card = f"{kind}, power limit {smi.split(',')[-1].strip()}"
+    t_build = build_all()
+    print(f"phase 1: {kind}; built native lib in {t_build['native']:.2f} s and CUDA kernels "
+          f"in {t_build['kernels']:.2f} s, side by side")
 
     # ---- phase 2: kernels vs plain twins at the main path's shapes ----------
     cfg = kitti_config()
@@ -211,16 +348,16 @@ def main() -> int:
     k1_plain_ms = median_ms(lambda: cc_cuda.edge_bits_reference(*k1_args, **k1_kw), n=5)
     k2_ms = median_ms(lambda: cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V))
     k2_plain_ms = median_ms(lambda: cc_cuda.window_cc_reference(bits, win.L0, max_wp, H=H, V=V), n=5)
+    bounds = kernel_bounds(win, bits, rounds, H, V)
     print(f"phase 2: window R={win.active_w.shape[0]} WCOL={win.active_w.shape[1]}, "
           f"{int(win.active_w.sum())} active cells, {n_set} edge bits set; K1 bits equal; "
           f"K2 labels equal (rounds kernel {int(rounds)}, plain {int(rounds_ref)}); "
-          f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms; "
-          f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms")
+          f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms, bound {bounds['edge_bits']}; "
+          f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, bound {bounds['window_cc']}")
+
+    launches = Launches()
 
     # ---- phase 3: oracle and serpentine at 32 x 220 -------------------------
-    from continuous_clustering_tpu.evaluation.synthetic import (
-        frame_to_firings, make_scene, raycast_frame)
-
     scfg = small_config()
     scene = make_scene(num_boxes=8, seed=1, spread=20.0)
     sfirings = []
@@ -244,6 +381,7 @@ def main() -> int:
     oracle.finished_column_callback = on_oracle_col
     for f in sfirings:
         oracle.add_firing(f, np.eye(4))
+    launches.start()
     p_labels, p_ground, p_clusters, _ = run_facade(scfg, SMALL_ROWS, sfirings, dev, 64)
     common = set(o_labels) & set(p_labels)
     check(len(common) > 0.9 * len(o_labels), "too few points in common with the oracle")
@@ -251,37 +389,26 @@ def main() -> int:
     agree = partition_agreement(o_labels, p_labels)
     check(g_match == 1.0, f"ground labels agree on {g_match}")
     check(agree >= 0.995, f"oracle partition agreement {agree}")
-    check(p_clusters and all(len(p) > 20 for p, _ in p_clusters), "no valid clusters")
+    check(p_clusters and all(n > 20 for n in p_clusters), "no valid clusters")
     snake_labels, _, _, _ = run_facade(scfg, SMALL_ROWS, serpentine_firings(), dev, 48)
     snake_ids = set(snake_labels.values()) - {0}
     check(len(snake_labels) > 300 and len(snake_ids) <= 2,
           f"serpentine: {len(snake_labels)} points in {len(snake_ids)} clusters")
+    got = launches.stop("phase 3")
     print(f"phase 3: oracle agreement {agree:.6f} on {len(common)} points, ground exact; "
-          f"serpentine converged, {len(snake_labels)} points in {len(snake_ids)} cluster(s)")
+          f"serpentine converged, {len(snake_labels)} points in {len(snake_ids)} cluster(s); "
+          f"launches {got}")
 
-    # ---- phase 4: the main path at full size ---------------------------------
-    from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
-
-    pipe = ContinuousClustering(cfg, firing_batch_size=B_FIRINGS, device=dev)
-    pipe.reset(FULL_ROWS)
-    pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
-    published, clusters = [], []
-
-    def on_col(a, b, ground_only):
-        if ground_only:
-            return
-        cloud = pipe.get_columns(a, b)
-        valid = cloud["globally_unique_point_index"] != np.iinfo(np.uint64).max
-        published.append((cloud["globally_unique_point_index"][valid], cloud["id"][valid]))
-
-    pipe.set_finished_column_callback(on_col)
-    pipe.set_finished_cluster_callback(lambda pts, stamp: clusters.append(len(pts)))
+    # ---- phase 4: the host-insertion main path at full size ------------------
+    pipe = make_facade(cfg, FULL_ROWS, dev, B_FIRINGS)
+    published, clusters = {}, []
+    collect(pipe, published, clusters=clusters)
     eye = np.eye(4)
     revs = [firings[r * n_cols:(r + 1) * n_cols] for r in range(5)]
+    launches.start()
     for f in revs[0]:                      # warm-up revolution
         pipe.add_firing(f, eye)
     torch.cuda.synchronize()
-    cc_cuda.reset_launch_counts()
     steps0 = pipe.n_steps
     t0 = time.perf_counter()
     for rev in revs[1:4]:                  # three timed revolutions
@@ -289,7 +416,6 @@ def main() -> int:
             pipe.add_firing(f, eye)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(cc_cuda.LAUNCHES)
     steps = pipe.n_steps - steps0
     points = sum(int(np.isfinite(f["xyz"][:, 0]).sum()) for rev in revs[1:4] for f in rev)
     # host <-> device synchronisations per step, over one more revolution
@@ -304,44 +430,153 @@ def main() -> int:
     sync_steps = pipe.n_steps - steps1
     pipe.flush()
     torch.cuda.synchronize()
-    check(steps > 0 and launches["edge_bits"] == steps and launches["window_cc"] == steps,
-          f"launches {launches} != association steps {steps}")
+    got = launches.stop("phase 4")
+    check(got["edge_bits"] == got["window_cc"] == pipe.n_steps,
+          f"launches {got} != association steps {pipe.n_steps}")
     check(len(clusters) > 0, "no clusters were published")
-    print(f"phase 4: {kind}, power limit {smi.split(',')[-1].strip()}: 3 revolutions of "
-          f"{FULL_ROWS} x {n_cols} at firing batch {B_FIRINGS}: {points} points in "
-          f"{dt:.3f} s = {points / dt:.0f} points/s; {steps} steps, {dt / steps * 1e3:.2f} ms/step; "
-          f"launches {launches}; {len(clusters)} clusters published; "
-          f"{syncs / max(sync_steps, 1):.2f} host-device syncs per step over {sync_steps} steps")
-
-    gpu_labels = {int(u): int(i) for us, ids in published for u, i in zip(us, ids)}
+    print(f"phase 4: {card}: host insertion, 3 revolutions of {FULL_ROWS} x {n_cols} at "
+          f"firing batch {B_FIRINGS}: {points} points in {dt:.3f} s = {points / dt:.0f} "
+          f"points/s; {steps} steps, {dt / steps * 1e3:.2f} ms/step; launches {got}; "
+          f"{len(clusters)} clusters published; {syncs / max(sync_steps, 1):.2f} host-device "
+          f"syncs per step over {sync_steps} steps")
     # the CPU leg: the first two revolutions through the plain twins; only
-    # columns published before the last revolution's end count
+    # columns published before the last firing batch count
     cpu_n = 2 * n_cols
     t0 = time.perf_counter()
     cpu_labels, _, _, _ = run_facade(cfg, FULL_ROWS, firings[:cpu_n], "cpu", B_FIRINGS,
                                      stop_after=cpu_n - B_FIRINGS)
-    t_cpu = time.perf_counter() - t0
-    common = set(cpu_labels) & set(gpu_labels)
-    agree = partition_agreement(
-        {k: cpu_labels[k] for k in common}, {k: gpu_labels[k] for k in common})
-    check(len(common) == len(cpu_labels) > 10000,
-          f"{len(common)} of the CPU leg's {len(cpu_labels)} points published on the card")
-    check(agree == 1.0, f"card vs CPU partition agreement {agree}")
-    print(f"phase 4: CPU leg ({cpu_n // n_cols} revolutions, plain twins, {t_cpu:.1f} s): "
-          f"partition agreement {agree} on {len(common)} points")
+    agree, n_common = agreement_with_cpu(published, cpu_labels, "phase 4")
+    print(f"phase 4: CPU leg ({cpu_n // n_cols} revolutions, plain twins, "
+          f"{time.perf_counter() - t0:.1f} s): partition agreement {agree} on {n_common} points")
 
+    # ---- phase 5: device insertion at full size -----------------------------
+    pipe = make_facade(cfg, FULL_ROWS, dev, B_FIRINGS, insertion="device")
+    published, clusters = {}, []
+    collect(pipe, published, clusters=clusters)
+    dev_firings = firings[:3 * n_cols]
+    launches.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in dev_firings:
+        pipe.add_firing(f, eye)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = pipe.n_steps
+    pipe.flush()
+    torch.cuda.synchronize()
+    got = launches.stop("phase 5")
+    check(got["edge_bits"] == got["window_cc"] == pipe.n_steps,
+          f"launches {got} != association steps {pipe.n_steps}")
+    check(len(clusters) > 0, "no clusters were published")
+    points = sum(int(np.isfinite(f["xyz"][:, 0]).sum()) for f in dev_firings)
+    print(f"phase 5: {card}: device insertion, 3 revolutions of {FULL_ROWS} x {n_cols} at "
+          f"firing batch {B_FIRINGS}: {points} points in {dt:.3f} s = {points / dt:.0f} "
+          f"points/s; {steps} steps, {dt / steps * 1e3:.2f} ms/step; launches {got}; "
+          f"{len(clusters)} clusters published")
+    # one step broken down: insertion alone, and the whole step under the
+    # profiler (device kernels launched, device busy time)
+    from continuous_clustering_tpu_torch.models.step import pipeline_step
+    from continuous_clustering_tpu_torch.ops.insertion import insert_firings
+    from continuous_clustering_tpu_torch.ops.state import copy_state
+
+    nxt = firings[3 * n_cols:3 * n_cols + B_FIRINGS]
+    batch = pipe._make_batch(nxt, [eye] * len(nxt))
+    ins_ms = []
+    for _ in range(3):
+        st = copy_state(pipe.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        insert_firings(cfg, st, batch)
+        torch.cuda.synchronize()
+        ins_ms.append((time.perf_counter() - t0) * 1e3)
+    st = copy_state(pipe.state)
+    launches.start()
+    try:
+        prof = device_profile(lambda: pipeline_step(cfg, st, batch, pipe._make_calib(),
+                                                    pipe._batch_B, pipe._slab_W,
+                                                    pipe._slab_W1))
+    except RuntimeError as e:  # the profiler is an observer: its failure fails no check
+        print(f"phase 5: torch.profiler failed: {e}")
+        prof = None
+    launches.stop("phase 5 profile")
+    prof_txt = ("profiler saw no device time" if prof is None else
+                f"one step under the profiler: {prof[0]} device kernels, device busy "
+                f"{prof[1]:.2f} of {prof[2]:.2f} ms ({100 * prof[1] / prof[2]:.2f} %)")
+    print(f"phase 5: insertion of {B_FIRINGS} firings alone {statistics.median(ins_ms):.2f} ms "
+          f"(median of 3: {[round(t, 2) for t in ins_ms]}); {prof_txt}")
+    cpu_n = 2 * n_cols
+    t0 = time.perf_counter()
+    cpu_labels, _, _, _ = run_facade(cfg, FULL_ROWS, firings[:cpu_n], "cpu", B_FIRINGS,
+                                     stop_after=cpu_n - B_FIRINGS, insertion="device")
+    agree, n_common = agreement_with_cpu(published, cpu_labels, "phase 5")
+    print(f"phase 5: CPU leg ({cpu_n // n_cols} revolutions, device insertion on the CPU, "
+          f"{time.perf_counter() - t0:.1f} s): partition agreement {agree} on {n_common} points")
+
+    # ---- phase 6: checkpoint and resume on the card -------------------------
+    launches.start()
+    ref_labels, _, _, _ = run_facade(scfg, SMALL_ROWS, sfirings, dev, 64)
+    half = len(sfirings) // 2
+    ckpt = ROOT / "continuous_clustering_tpu_torch" / "build" / "chip_smoke_checkpoint.npz"
+    labels = {}
+    p1 = make_facade(scfg, SMALL_ROWS, dev, 64)
+    collect(p1, labels)
+    for f in sfirings[:half]:
+        p1.add_firing(f, eye)
+    save_state(p1, ckpt)
+    p2 = make_facade(scfg, SMALL_ROWS, dev, 64)
+    load_state(p2, ckpt)
+    ckpt.unlink()
+    check(p2.state.device == dev and p2._host_ins is None, "the resume is not on the card")
+    collect(p2, labels)
+    for f in sfirings[half:]:
+        p2.add_firing(f, eye)
+    p2.flush()
+    got = launches.stop("phase 6")
+    common = set(ref_labels) & set(labels)
+    check(len(common) > 0.9 * len(ref_labels), "too few points in common after the resume")
+    agree = partition_agreement(ref_labels, labels)
+    check(agree >= 0.99, f"resume agreement {agree}")
+    print(f"phase 6: checkpoint after {half} firings, resumed on device insertion: partition "
+          f"agreement {agree:.6f} with the uninterrupted run on {len(common)} points; "
+          f"launches {got}")
+
+    # ---- phase 7: the periodic block runner on the throughput scenes --------
+    for name in bench_setup.SCENES:
+        bcfg, bpipe = bench_setup.make_bench_pipe(num_rows=FULL_ROWS, num_cols=n_cols,
+                                                  ring_revs=10, batch=B_FIRINGS, nth=1,
+                                                  device=dev)
+        bfirings, n_points = bench_setup.make_bench_scene(FULL_ROWS, n_cols, name)
+        bscene = bench_setup.capture_revolution(bpipe, bfirings, n_cols)
+        launches.start()
+        res = bench_setup.measure_periodic_rate(bcfg, bpipe, bscene, n_cols, n_points, N=1,
+                                                pairs=2, slab_cols=bpipe._slab_W,
+                                                slab_head=bpipe._slab_W1)
+        got = launches.stop(f"phase 7 {name}")
+        check(got["edge_bits"] == got["window_cc"] == res["k0"],
+              f"{name}: launches {got} != steps {res['k0']}")
+        check(not res["overflow"] and not res["cc_failed"], f"{name}: overflow or cc_failed")
+        total_revs = res["k0"] // res["per_rev"]
+        fu = int(res["state"].first_unpublished)
+        check(fu > (total_revs - 3) * n_cols, f"{name}: frontier {fu} after {total_revs} revs")
+        print(f"phase 7: {card}: periodic runner, scene {name} ({n_points} points/rev, "
+              f"{res['per_rev']} steps/rev, slab included): {res['pts_per_s']:.0f} points/s, "
+              f"{res['ms_per_rev']:.2f} ms/rev, diff_ok {res['diff_ok']}, raw 2N "
+              f"{res['raw_2n_pts_per_s']:.0f} points/s; t1 {res['t1s_ms']} ms, "
+              f"t2 {res['t2s_ms']} ms; frontier {fu} after {total_revs} revs; "
+              f"checksum {res['checksum']}; launches {got}")
+
+    timing = {"edge_bits": (k1_ms, k1_plain_ms, k1_err), "window_cc": (k2_ms, k2_plain_ms, k2_err)}
+    sources = {"edge_bits": ("continuous_clustering_tpu_torch/csrc/edge_bits.cu",
+                             "continuous_clustering_tpu/ops/cc_pallas.py:444"),
+               "window_cc": ("continuous_clustering_tpu_torch/csrc/window_cc.cu",
+                             "continuous_clustering_tpu/ops/cc_pallas.py:202")}
     print(json.dumps({"kernels": [
-        {"name": "edge_bits", "route": "cuda",
-         "source": "continuous_clustering_tpu_torch/csrc/edge_bits.cu",
-         "replaces": "continuous_clustering_tpu/ops/cc_pallas.py:444",
-         "launches": launches["edge_bits"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "window_cc", "route": "cuda",
-         "source": "continuous_clustering_tpu_torch/csrc/window_cc.cu",
-         "replaces": "continuous_clustering_tpu/ops/cc_pallas.py:202",
-         "launches": launches["window_cc"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]}))
+        {"name": name, "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1], "launches": launches.total[name],
+         "max_abs_err": timing[name][2], "ms": timing[name][0], "plain_ms": timing[name][1],
+         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "library_ms": None}
+        for name in ("edge_bits", "window_cc")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -350,7 +585,7 @@ def main() -> int:
 def serpentine_firings():
     """Two revolutions of one two-cell-thick zigzag ribbon at 6 m spanning
     the whole rotation (the adversarial CC input of tests/test_cc_pallas.py)."""
-    from continuous_clustering_tpu.evaluation.synthetic import frame_to_firings
+    from continuous_clustering_tpu_torch.evaluation.synthetic import frame_to_firings
 
     R, C = SMALL_ROWS, SMALL_COLS
     inc = np.deg2rad(np.linspace(2.0, -24.8, R))

@@ -4,20 +4,26 @@ continuous-clustering engine.
 The JAX package ``continuous_clustering_tpu`` stays the reference; this
 package mirrors its layout so each module's counterpart is easy to find:
 
-* ``ops``     — ring state, ingest, ground segmentation, association
-                (with the two hand-written CUDA kernels in ``ops/cc_cuda.py``
-                and ``csrc/``), packed readout
-* ``models``  — ``pipeline_step_block``, host insertion and the streaming
-                ``ContinuousClustering`` facade
-* ``io``      — native slab -> point-cloud assembly
-* ``native``  — builds and loads the shared C++ host library
-* ``convert`` — JAX-state <-> port-state conversion through numpy
+* ``ops``        — ring state, device insertion, ingest, ground
+                   segmentation, association (with the two hand-written CUDA
+                   kernels in ``ops/cc_cuda.py`` and ``csrc/``), packed
+                   readout, and the sequential oracle
+* ``models``     — ``pipeline_step`` and ``pipeline_step_block``, host
+                   insertion, the streaming ``ContinuousClustering`` facade,
+                   checkpoint/resume and the scan runners
+* ``io``         — point-cloud schemas and native slab -> cloud assembly
+* ``evaluation`` — synthetic scenes and partition comparison
+* ``tools``      — throughput measurement set-up (``bench_setup``)
+* ``native``     — builds and loads the C++ host library from ``csrc/host``
+* ``convert``    — JAX-state <-> port-state and config conversion through numpy
 
-The port imports ``torch`` and never ``jax``.  Modules of the JAX package
-that contain no JAX (``config``, ``constants``, ``io/point_cloud``,
-``evaluation``, ``ops/oracle``) are imported from it as they are.
+The port imports ``torch`` and never ``jax``, and nothing of the JAX
+package: the modules it shares with it (``config``, ``constants``,
+``io/point_cloud``, ``evaluation``, ``ops/oracle`` and the C++ host sources)
+are its own copies.  Entry points run on the card (``device=None`` means
+``cuda``) unless the caller asks for the CPU.
 """
 
-from continuous_clustering_tpu.config import Config, kitti_config
+from .config import Config, kitti_config
 
 __all__ = ["Config", "kitti_config"]

@@ -1,9 +1,11 @@
-"""Conversion between the JAX package's ``RingState`` and the port's.
+"""Conversion between the JAX package's ``RingState`` and ``Config`` and the
+port's.
 
 The exchange format is a dict of numpy arrays keyed by field name, so this
 module needs no JAX: the JAX side is ``{f.name: np.asarray(getattr(s, f.name))
 for f in dataclasses.fields(s)}``.  u32 fields cross as uint32 and are held
-by the port as int32 bit patterns.
+by the port as int32 bit patterns.  A configuration crosses as
+``dataclasses.asdict``: the two packages share no class.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from . import config as _config
 from .ops.state import U32_FIELDS, RingState
 
 FIELD_NAMES = tuple(f.name for f in dataclasses.fields(RingState))
@@ -37,3 +40,13 @@ def state_to_numpy(state: RingState) -> Dict[str, np.ndarray]:
             a = a.view(np.uint32)
         out[name] = a
     return out
+
+
+def config_from_dataclass(cfg) -> _config.Config:
+    """The port's ``Config`` with the values of ``cfg``, any dataclass of the
+    same nested layout (the JAX package's ``Config``), through
+    ``dataclasses.asdict``."""
+    groups = dataclasses.asdict(cfg)
+    kw = {f.name: f.type for f in dataclasses.fields(_config.Config)}
+    return _config.Config(**{
+        name: getattr(_config, kw[name])(**vals) for name, vals in groups.items()})

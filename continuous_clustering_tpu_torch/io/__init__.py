@@ -1,1 +1,1 @@
-"""Host-side I/O of the port: native slab -> point-cloud assembly."""
+"""Host-side I/O of the port: point-cloud schemas and native slab -> point-cloud assembly."""

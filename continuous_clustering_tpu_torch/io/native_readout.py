@@ -13,7 +13,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from continuous_clustering_tpu.io.point_cloud import POINT_DTYPE
+from .point_cloud import POINT_DTYPE
 
 from .. import native
 from ..ops.readout import FETCH_ORDER, N_SLAB_ROWS

@@ -1,20 +1,26 @@
 """The streaming facade (port of
-``continuous_clustering_tpu/models/continuous_clustering.py``, host-insertion
-path only).
+``continuous_clustering_tpu/models/continuous_clustering.py``).
 
 Public API as the JAX facade and the reference class: ``reset(num_rows)``,
 ``set_configuration``, ``set_transform_robot_frame_from_sensor_frame``,
 ``add_firing``, ``flush``, the finished-column and finished-cluster
-callbacks and ``get_columns``.  The device is explicit:
-``ContinuousClustering(config, device="cuda")``.
+callbacks and ``get_columns``.  ``device`` defaults to ``cuda``; a CPU run is
+asked for with ``device="cpu"``.
 
-Per firing batch the native engine inserts the firings on the host; each
-finished column block goes to the device as ONE merged i32 buffer (one
-host-to-device copy), runs ``pipeline_step_block``, and the host reads the
-packed meta vector with ONE device-to-host copy (one step late in async
-mode, ``is_single_threaded=False``).  Cluster emission reads the publish
-slab that rode the step's outputs.  The native library is required: when it
-cannot be built, ``reset`` raises.
+Two insertion paths, chosen by the ``insertion`` argument:
+
+* ``"host"`` (default): per firing batch the native C++ engine inserts the
+  firings on the host; each finished column block goes to the device as ONE
+  merged i32 buffer (one host-to-device copy) and runs
+  ``pipeline_step_block``.  The native library is required: when it cannot
+  be built, ``reset`` raises.
+* ``"device"``: the firing batch goes to the device and ``pipeline_step``
+  inserts it there.  A step that finished more columns than it holds
+  defers the surplus; empty batches drain it.
+
+Either way the host reads the packed meta vector with ONE device-to-host
+copy per step (one step late in async mode, ``is_single_threaded=False``),
+and cluster emission reads the publish slab that rode the step's outputs.
 """
 
 from __future__ import annotations
@@ -25,34 +31,43 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from continuous_clustering_tpu.config import Config
-from continuous_clustering_tpu.io.point_cloud import ProcessingStage, combine_u64, stage_dtype
+from ..config import Config
+from ..io.point_cloud import ProcessingStage, combine_u64, stage_dtype
 
 from ..io import native_readout
 from ..ops.ingest import N_BLOCK_FIELDS, N_BLOCK_SCALARS, N_MERGED_PLANES, split_merged, unpack_block
+from ..ops.insertion import FiringBatch
 from ..ops.readout import join_tables, packed_readout, unpack_slab
 from ..ops.state import RingState, init_state, rebase_azimuth
 from .host_insertion import HostInsertion
 from .step import (META_CC_FAILED, META_CC_ROUNDS, META_COUNTER_OLD, META_FU_NEW,
                    META_FU_OLD, META_GCOL0, META_NCOLS, META_NUM_NEW, META_OVERFLOW,
-                   META_RESET, N_META, SegPoses, StepInfo, pipeline_step_block)
+                   META_RESET, N_META, EgoCalibration, SegPoses, StepInfo, pipeline_step,
+                   pipeline_step_block)
 
 TWO_PI = 2.0 * math.pi
+INSERTION_PATHS = ("host", "device")
 
 
 class ContinuousClustering:
     """Streaming continuous clustering on a torch device."""
 
     def __init__(self, config: Config = Config(), firing_batch_size: int = 256,
-                 rebase_after_rotations: int = 256, device="cpu"):
+                 rebase_after_rotations: int = 256, device=None,
+                 insertion: str = "host"):
+        if insertion not in INSERTION_PATHS:
+            raise ValueError(f"insertion must be one of {INSERTION_PATHS}, got {insertion!r}")
         self._config = config
-        self._device = torch.device(device)
+        # the card unless the caller names another device; no fallback
+        self._device = torch.device("cuda" if device is None else device)
+        self._insertion = insertion
         self._batch_F = firing_batch_size
         self._rebase_after = rebase_after_rotations
         self._num_rows: Optional[int] = None
         self._state: Optional[RingState] = None
         self._ego_from_sensor: Optional[np.ndarray] = None
         self._hsg_dev: Optional[torch.Tensor] = None
+        self._calib: Optional[EgoCalibration] = None
         self._reset_required = False
         self.finished_column_callback: Optional[Callable[[int, int, bool], None]] = None
         self.finished_cluster_callback: Optional[Callable[[np.ndarray, int], None]] = None
@@ -65,6 +80,7 @@ class ContinuousClustering:
             self._reset_required = True
         self._config = config
         self._hsg_dev = None
+        self._calib = None
         if self._num_rows is not None:
             self._setup_widths()
 
@@ -74,6 +90,7 @@ class ContinuousClustering:
     def set_transform_robot_frame_from_sensor_frame(self, tf: np.ndarray) -> None:
         self._ego_from_sensor = np.asarray(tf, dtype=np.float64)
         self._hsg_dev = None
+        self._calib = None
 
     def has_transform_robot_frame_from_sensor_frame(self) -> bool:
         return self._ego_from_sensor is not None
@@ -85,7 +102,8 @@ class ContinuousClustering:
         self.finished_cluster_callback = cb
 
     def reset(self, num_rows: int) -> None:
-        if num_rows < 15:
+        host = self._insertion == "host"
+        if host and num_rows < 15:
             raise ValueError("the merged staging buffer carries the (B, 15) pose "
                              "matrix in one (B, R) plane: num_rows must be >= 15")
         self._num_rows = num_rows
@@ -93,12 +111,17 @@ class ContinuousClustering:
         self._reset_required = False
         self._fifo.clear()
         self._fifo_poses.clear()
-        self._host_ins = HostInsertion(self._config, num_rows)
+        self._host_ins = HostInsertion(self._config, num_rows) if host else None
         # host mirrors of device scalars (no syncs on the hot path)
         self._h_first_unfinished = -1
         self._h_first_unpublished = -1
+        self._h_cluster_counter = 1
         self._h_origin_rot = 0
         self._pending_infos: List[StepInfo] = []
+        # device insertion: the last firing's pose (empty drain batches carry
+        # it) and the column count of the last consumed step
+        self._last_pose = np.eye(4)
+        self._last_ncols = 0
         # publish-slab cache: (lo, hi, head, tail, join tables) of the last
         # consumed step; its host copy is made on first touch
         self._slab = None
@@ -149,12 +172,22 @@ class ContinuousClustering:
         if self._fifo:
             self._process_batch()
         self._drain_pending()
+        if self._host_ins is None:
+            # stream end: drain surplus finished columns beyond step capacity
+            # (the host-insertion path drains inline)
+            while self._last_ncols == self._batch_B and not self._reset_required:
+                self._last_ncols = 0
+                self._run_step(self._empty_batch(), self._make_calib())
+                self._drain_pending()
         if self._h_first_unfinished >= 0 and not self._reset_required:
             for _ in range(3):
                 fu_before = self._h_first_unpublished
-                fu = self._h_first_unfinished
-                buf, _ = self._merged_block(fu, fu, False)
-                self._consume_info(self._run_block(buf))
+                if self._host_ins is not None:
+                    fu = self._h_first_unfinished
+                    buf, _ = self._merged_block(fu, fu, False)
+                    self._consume_info(self._run_block(buf))
+                else:
+                    self._run_step(self._empty_batch(), self._make_calib())
                 self._drain_pending()
                 if self._h_first_unpublished == fu_before:
                     break
@@ -190,6 +223,74 @@ class ContinuousClustering:
             out[:n, 12:15] = np.einsum("ij,bj->bi", ego[:3, :3], tinv) + ego[:3, 3]
         return out
 
+    def _make_batch(self, firings, poses) -> FiringBatch:
+        """The firing batch on the device, padded to the batch size (padding
+        firings are invalid and carry the identity pose)."""
+        F, R = self._batch_F, self._num_rows
+        xyz = np.full((F, R, 3), np.nan, np.float32)
+        stamp = np.zeros((F, R), np.uint64)
+        uidx = np.full((F, R), np.iinfo(np.uint64).max, np.uint64)
+        inten = np.zeros((F, R), np.int32)
+        fidx = np.zeros((F,), np.int32)
+        pose_arr = np.tile(np.eye(4)[:3], (F, 1, 1)).astype(np.float32)
+        for i, f in enumerate(firings):
+            xyz[i] = f["xyz"]
+            if "stamp" in f:
+                stamp[i] = f["stamp"]
+            if "uidx" in f:
+                uidx[i] = f["uidx"]
+            if "intensity" in f:
+                inten[i] = f["intensity"]
+            fidx[i] = f.get("firing_index", 0)
+            pose_arr[i] = poses[i][:3, :]
+
+        def u32(a):
+            return (a & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+
+        dev = self._device
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        return FiringBatch(
+            xyz=put(xyz), pose=put(pose_arr),
+            stamp_lo=put(u32(stamp)), stamp_hi=put(u32(stamp >> np.uint64(32))),
+            uidx_lo=put(u32(uidx)), uidx_hi=put(u32(uidx >> np.uint64(32))),
+            intensity=put(inten), firing_index=put(fidx),
+            valid=put(np.arange(F) < len(firings)),
+        )
+
+    def _empty_batch(self) -> FiringBatch:
+        """A batch of no firings; it carries the last firing's pose, so that
+        the columns it drains get their real trigger pose."""
+        empty = self._make_batch([], [])
+        pose = torch.from_numpy(self._last_pose[:3, :].astype(np.float32)).to(self._device)
+        return empty._replace(pose=pose.expand_as(empty.pose).contiguous())
+
+    def _make_calib(self) -> EgoCalibration:
+        if self._ego_from_sensor is None:
+            raise RuntimeError("Transform robot frame from sensor frame was not set yet!")
+        if self._calib is None:
+            ego = self._ego_from_sensor
+            self._calib = EgoCalibration(
+                ego_from_sensor=torch.tensor(ego[:3, :], dtype=torch.float32,
+                                             device=self._device),
+                height_sensor_to_ground=self._hsg())
+        return self._calib
+
+    def _run_step(self, batch: FiringBatch, calib: EgoCalibration) -> int:
+        """Run one device-insertion step.  In async mode the step's meta is
+        consumed one step later, so the host handles step k's callbacks while
+        the device runs step k + 1.  Returns n_cols of the step whose meta
+        was consumed (0 if it was deferred)."""
+        self.n_steps += 1
+        self._state, info = pipeline_step(
+            self._config, self._state, batch, calib, self._batch_B,
+            slab_cols=self._slab_W, slab_head=self._slab_W1)
+        if self._config.general.is_single_threaded:
+            return self._consume_info(info)
+        self._pending_infos.append(info)
+        if len(self._pending_infos) > 1:
+            return self._consume_info(self._pending_infos.pop(0))
+        return 0
+
     def _hsg(self) -> torch.Tensor:
         """Device scalar: sensor height over ground."""
         if self._hsg_dev is None:
@@ -199,24 +300,39 @@ class ContinuousClustering:
                 device=self._device)
         return self._hsg_dev
 
-    def _run_block(self, buf: np.ndarray) -> StepInfo:
-        """Upload one merged buffer and run the step on it."""
+    def _upload_block(self, buf: np.ndarray):
+        """One merged staging buffer on the device (one host-to-device copy)
+        as the step's (ColumnBlock, SegPoses)."""
         B = self._batch_B
-        self.n_steps += 1
         dev_buf = torch.from_numpy(buf).to(self._device, copy=True)
         fields, scalars, segp = split_merged(dev_buf)
         seg = SegPoses(sensor_pos=segp[:, 0:3], ego_rot=segp[:, 3:12].reshape(B, 3, 3),
                        ego_trans=segp[:, 12:15])
+        return unpack_block(fields, scalars), seg
+
+    def _run_block(self, buf: np.ndarray) -> StepInfo:
+        """Upload one merged buffer and run the step on it."""
+        self.n_steps += 1
+        block, seg = self._upload_block(buf)
         self._state, info = pipeline_step_block(
-            self._config, self._state, unpack_block(fields, scalars), seg, self._hsg(), B,
+            self._config, self._state, block, seg, self._hsg(), self._batch_B,
             slab_cols=self._slab_W, slab_head=self._slab_W1)
         return info
 
     def _process_batch(self) -> None:
         firings, poses = self._fifo, self._fifo_poses
         self._fifo, self._fifo_poses = [], []
-        if self._ego_from_sensor is None:
-            raise RuntimeError("Transform robot frame from sensor frame was not set yet!")
+        calib = self._make_calib()
+        if self._host_ins is None:
+            self._last_pose = poses[-1]
+            n_cols = self._run_step(self._make_batch(firings, poses), calib)
+            # a step that clamped at its column capacity may leave finished
+            # columns behind; empty batches re-advance the frontier from the
+            # persistent prev_rearmost and drain them
+            while n_cols == self._batch_B and not self._reset_required:
+                n_cols = self._run_step(self._empty_batch(), calib)
+            self._maybe_rebase()
+            return
         ins = self._host_ins
         first, end, reset = ins.add_firings(firings, poses)
         if reset:
@@ -241,11 +357,13 @@ class ContinuousClustering:
         while self._pending_infos:
             self._consume_info(self._pending_infos.pop(0))
 
-    def _consume_info(self, info: StepInfo) -> None:
-        m = info.meta.cpu().numpy()  # the one device-to-host copy of the step
+    def _consume_info(self, info: StepInfo) -> int:
+        """Read the step's meta (its one device-to-host copy), raise on its
+        error flags, run the callbacks; returns the step's n_cols."""
+        m = info.meta.cpu().numpy()
         if m[META_RESET]:
             self._reset_required = True
-            return
+            return 0
         if m[META_CC_FAILED]:
             raise RuntimeError(
                 "Connected-components labeling did not converge within the "
@@ -259,15 +377,17 @@ class ContinuousClustering:
                 "the stream or adjust parameters (reference throws the same "
                 "way, src/clustering/continuous_clustering.cpp:337-344).")
         n_cols = int(m[META_NCOLS])
+        self._last_ncols = n_cols
         self.last_cc_rounds = int(m[META_CC_ROUNDS])
         gcol0 = int(m[META_GCOL0])
         fu_old, fu_new = int(m[META_FU_OLD]), int(m[META_FU_NEW])
         if n_cols == 0 and fu_new == fu_old:
-            return
+            return 0
         if n_cols > 0:
             self._h_first_unfinished = gcol0 + n_cols
         counter_old = int(m[META_COUNTER_OLD])
         num_new = int(m[META_NUM_NEW])
+        self._h_cluster_counter = counter_old + num_new
         self._h_first_unpublished = fu_new
 
         if fu_old >= 0:
@@ -285,6 +405,7 @@ class ContinuousClustering:
                                 counter_old, counter_old + num_new)
         if fu_new > fu_old and self.finished_column_callback:
             self.finished_column_callback(fu_old, fu_new - 1, False)
+        return n_cols
 
     def _emit_clusters(self, from_gcol: int, to_gcol: int, counter_old: int,
                        counter_new: int) -> None:

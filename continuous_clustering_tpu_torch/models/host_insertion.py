@@ -13,7 +13,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from continuous_clustering_tpu.config import Config
+from ..config import Config
 
 from .. import native
 from ..ops.ingest import N_BLOCK_FIELDS, N_BLOCK_SCALARS

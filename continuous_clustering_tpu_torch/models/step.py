@@ -1,10 +1,16 @@
-"""The streaming device step (port of ``continuous_clustering_tpu/models/step.py``,
-host-insertion variant ``pipeline_step_block`` only).
+"""The streaming device step (port of ``continuous_clustering_tpu/models/step.py``).
 
-Per column batch: ingest -> ground segmentation -> association and
-completion -> publish slab, join tables and the packed meta vector.  The
-step's scalars are packed into ONE i32 vector (``StepInfo.meta``) so that
-the host reads them with a single device-to-host copy.
+Two variants:
+
+* ``pipeline_step_block`` (host insertion): ingest a dense finished-column
+  block -> ground segmentation -> association and completion;
+* ``pipeline_step`` (device insertion): insert a firing batch, clamp the
+  finished columns to the step's capacity, derive each column's trigger pose
+  and the ego transform on the device, then the same stages.
+
+Both end with the publish slab, join tables and the packed meta vector: the
+step's scalars ride ONE i32 vector (``StepInfo.meta``) so that the host
+reads them with a single device-to-host copy.
 """
 
 from __future__ import annotations
@@ -13,13 +19,14 @@ from typing import NamedTuple
 
 import torch
 
-from continuous_clustering_tpu.config import Config
+from ..config import Config
 
 from ..ops.association import CompleteResult, associate_and_complete
 from ..ops.ground_segmentation import SegmentInputs, ground_segment_columns
 from ..ops.ingest import ColumnBlock, ingest_columns
+from ..ops.insertion import I32_MIN, FiringBatch, fma32, insert_firings
 from ..ops.readout import N_SLAB_ROWS, join_tables, packed_readout
-from ..ops.state import RingState
+from ..ops.state import I32_MAX, RingState
 
 # meta vector lanes
 (META_GCOL0, META_NCOLS, META_FU_OLD, META_FU_NEW, META_NUM_NEW,
@@ -74,6 +81,13 @@ class StepInfo(NamedTuple):
         return self.meta[..., META_CC_ROUNDS]
 
 
+class EgoCalibration(NamedTuple):
+    """Static-per-stream ego calibration, device-resident."""
+
+    ego_from_sensor: torch.Tensor          # (3, 4) f32
+    height_sensor_to_ground: torch.Tensor  # () f32
+
+
 class SegPoses(NamedTuple):
     """Per-column trigger poses for segmentation (host-derived)."""
 
@@ -124,6 +138,73 @@ def pipeline_step_block(config: Config, state: RingState, block: ColumnBlock,
     slab, slab_ext = _publish_slab(state, cres.fu_old, slab_cols, slab_head)
     meta = pack_meta(
         block.gcol0, block.n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
+        counter_old, state.reset_required, state.overflow, state.cc_failed,
+        cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
+    )
+    return state, StepInfo(meta=meta, slab=slab, slab_ext=slab_ext)
+
+
+def _mat_vec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` over a leading batch axis, m (..., 3, 3), v (..., 3), as
+    elementwise f32 multiply-adds in the order XLA's CPU build evaluates the
+    JAX step's ``precision="highest"`` einsum (no matmul, so no TF32)."""
+    return fma32(m[..., 2], v[..., None, 2],
+                 fma32(m[..., 1], v[..., None, 1], m[..., 0] * v[..., None, 0]))
+
+
+def pipeline_step(config: Config, state: RingState, batch: FiringBatch,
+                  ego: EgoCalibration, batch_cols: int, slab_cols: int = 0,
+                  slab_head: int = 0):
+    """Process one firing batch end to end on the device; updates ``state``
+    in place and returns (state, StepInfo).
+
+    ``batch_cols`` is the static column capacity of the step, normally
+    ``F + slack``.  If more columns finish than fit, the surplus is deferred
+    to the next step (the insertion frontier is rolled back accordingly)."""
+    F = batch.xyz.shape[0]
+    B = batch_cols
+    dev = state.device
+
+    fu_before = state.first_unfinished  # -1 before the first data
+    res = insert_firings(config, state, batch)
+    state = res.state
+    rearmost = res.rearmost_per_firing  # (F,) frontier after each firing
+
+    first_valid = torch.where(rearmost >= 0, rearmost, I32_MAX).amin()
+    gcol0 = torch.where(fu_before >= 0, fu_before, first_valid).to(torch.int32)
+    fu_after = state.first_unfinished
+    n_cols = torch.clamp(fu_after - gcol0, 0, B)
+    has_work = (fu_after >= 0) & (n_cols > 0) & ~state.reset_required
+    n_cols = torch.where(has_work, n_cols, 0).to(torch.int32)
+    # defer surplus columns: roll the insertion frontier back to what is segmented
+    state.first_unfinished = torch.where(has_work, gcol0 + n_cols, fu_after).to(torch.int32)
+
+    # per-column trigger pose: the first firing whose rearmost passes the column
+    cols = gcol0 + torch.arange(B, dtype=torch.int32, device=dev)
+    rm_key = torch.where(rearmost >= 0, rearmost, I32_MIN).contiguous()
+    trig = torch.clamp(torch.searchsorted(rm_key, cols, right=True), 0, F - 1)
+    pose_cols = batch.pose[trig]                       # (B, 3, 4)
+    sensor_pos = pose_cols[:, :, 3]
+
+    # ego_from_odom = ego_from_sensor @ inverse(odom_from_sensor)
+    rinv = pose_cols[:, :, :3].transpose(1, 2)        # (B, 3, 3)
+    tinv = -_mat_vec(rinv, sensor_pos)
+    er = ego.ego_from_sensor[:, :3]
+    etr = ego.ego_from_sensor[:, 3]
+    ego_rot = torch.stack([_mat_vec(er, rinv[:, :, k]) for k in range(3)], dim=2)
+    ego_trans = _mat_vec(er, tinv) + etr
+
+    seg_in = SegmentInputs(
+        gcol0=gcol0, n_cols=n_cols, sensor_pos=sensor_pos, ego_rot=ego_rot,
+        ego_trans=ego_trans, height_sensor_to_ground=ego.height_sensor_to_ground,
+    )
+    state = ground_segment_columns(config, state, seg_in, B)
+    counter_old = state.cluster_counter
+    cres: CompleteResult = associate_and_complete(config, state, gcol0, n_cols, B)
+    state = cres.state
+    slab, slab_ext = _publish_slab(state, cres.fu_old, slab_cols, slab_head)
+    meta = pack_meta(
+        gcol0, n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
         counter_old, state.reset_required, state.overflow, state.cc_failed,
         cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
     )

@@ -1,12 +1,11 @@
-"""Build and load the shared native host library (insertion engine, packet
-decoders, slab readout) from ``continuous_clustering_tpu/native/src``.
+"""Build and load the native host library (insertion engine, packet
+decoders, slab readout) from the port's C++ sources in ``csrc/host``.
 
 The library is compiled at first use with plain ``g++`` (no cmake or ninja)
 into ``continuous_clustering_tpu_torch/build/``.  The file name carries a
 hash of the sources, so an edited source builds a new library, and the
 output is written under a temporary name and renamed into place so that
-concurrent test workers never load a half-written file.  The JAX package's
-own ``native/lib`` is left alone.
+concurrent test workers never load a half-written file.
 """
 
 from __future__ import annotations
@@ -19,9 +18,7 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
-from continuous_clustering_tpu.native import _declare
-
-SRC_DIR = Path(__file__).resolve().parent.parent / "continuous_clustering_tpu" / "native" / "src"
+SRC_DIR = Path(__file__).resolve().parent / "csrc" / "host"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 _CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
@@ -76,3 +73,74 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _LIB = lib
     return _LIB
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    lib.cct_insertion_create.restype = c.c_void_p
+    lib.cct_insertion_create.argtypes = [c.c_int, c.c_int, c.c_int, c.c_int]
+    lib.cct_insertion_destroy.argtypes = [c.c_void_p]
+    lib.cct_insertion_add_firings.restype = c.c_int64
+    lib.cct_insertion_add_firings.argtypes = [
+        c.c_void_p, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_void_p, c.POINTER(c.c_int64), c.POINTER(c.c_int32),
+    ]
+    lib.cct_insertion_fetch_columns.argtypes = [c.c_void_p, c.c_int64, c.c_int64] + [c.c_void_p] * 11
+    lib.cct_insertion_clear_before.argtypes = [c.c_void_p, c.c_int64]
+    lib.cct_insertion_reset.argtypes = [c.c_void_p]
+
+    lib.cct_generate_range_image.argtypes = [
+        c.c_int64, c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_void_p
+    ]
+    lib.cct_recover_laser_indices.restype = c.c_int32
+    lib.cct_recover_laser_indices.argtypes = [c.c_int64, c.c_void_p, c.c_int, c.c_void_p]
+
+    lib.cct_velodyne_create.restype = c.c_void_p
+    lib.cct_velodyne_create.argtypes = [
+        c.c_int, c.c_float, c.c_void_p, c.c_void_p, c.c_void_p, c.c_double
+    ]
+    lib.cct_velodyne_set_corrections.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.c_void_p,
+    ]
+    lib.cct_velodyne_destroy.argtypes = [c.c_void_p]
+    lib.cct_velodyne_decode.argtypes = [c.c_void_p, c.c_void_p, c.c_int64, c.c_uint64]
+    lib.cct_velodyne_poll.restype = c.c_int
+    lib.cct_velodyne_poll.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p]
+
+    lib.cct_ouster_create.restype = c.c_void_p
+    lib.cct_ouster_create.argtypes = [
+        c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_double,
+        c.c_void_p, c.c_void_p,
+    ]
+    lib.cct_ouster_destroy.argtypes = [c.c_void_p]
+    lib.cct_ouster_decode.argtypes = [c.c_void_p, c.c_void_p, c.c_int64, c.c_uint64]
+    lib.cct_ouster_poll.restype = c.c_int
+    lib.cct_ouster_poll.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p]
+
+    lib.cct_offload_create.restype = c.c_void_p
+    lib.cct_offload_create.argtypes = [c.c_void_p, c.c_int, c.c_int]
+    lib.cct_offload_destroy.argtypes = [c.c_void_p]
+    lib.cct_offload_enqueue.argtypes = [c.c_void_p, c.c_void_p, c.c_int64, c.c_uint64]
+    lib.cct_offload_pending.restype = c.c_int64
+    lib.cct_offload_pending.argtypes = [c.c_void_p]
+    lib.cct_offload_drain.argtypes = [c.c_void_p]
+    lib.cct_offload_poll.restype = c.c_int
+    lib.cct_offload_poll.argtypes = [c.c_void_p, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p]
+
+    lib.cct_readout_record_size.restype = c.c_int64
+    lib.cct_readout_record_size.argtypes = []
+    if hasattr(lib, "cct_readout_layout_version"):
+        lib.cct_readout_layout_version.restype = c.c_int64
+        lib.cct_readout_layout_version.argtypes = []
+    lib.cct_assemble_cloud.argtypes = [
+        c.c_void_p, c.c_int64, c.c_int64, c.c_int64, c.c_void_p, c.c_int64,
+        c.c_int64, c.c_int64, c.c_int64, c.c_int64, c.c_double, c.c_void_p,
+    ]
+    lib.cct_emit_clusters.restype = c.c_int64
+    lib.cct_emit_clusters.argtypes = [
+        c.c_void_p, c.c_int64, c.c_int64, c.c_int64, c.c_void_p, c.c_int64,
+        c.c_int64, c.c_int64, c.c_int64, c.c_int64, c.c_double, c.c_int64,
+        c.c_int64, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p,
+        c.POINTER(c.c_int32),
+    ]

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from continuous_clustering_tpu.config import Config
+from ..config import Config
 
 from . import cc_cuda
 from .state import I32_MAX, RingState, clear_columns_chunk, ring_put, ring_read

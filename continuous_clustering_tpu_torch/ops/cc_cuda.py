@@ -15,13 +15,16 @@ takes the plain twin.  The twins are the JAX package's XLA formulations
 shipped scan schedule).  ``LAUNCHES`` counts kernel launches only.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
-``continuous_clustering_tpu_torch/build/`` (plain C interface, ctypes).
+``continuous_clustering_tpu_torch/build/`` (plain C interface, ctypes), one
+compiler process per source, all started together.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import shutil
+import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -52,14 +55,35 @@ def kernel_library_path() -> Path:
     return BUILD_DIR / f"libcct_kernels-{sources_digest(srcs)}.so"
 
 
+def _build_kernel_library(out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc] + compile_flags + ["-c", str(src), "-o", str(obj)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+    try:
+        failed = [log for log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("build of the CUDA kernels failed:\n" + "\n".join(failed))
+        compile_atomic([nvcc] + NVCC_FLAGS + [str(o) for o in objs], out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
 def load_kernels() -> ctypes.CDLL:
     """Build (once) and load the kernel library."""
     global _KLIB
     if _KLIB is None:
         out = kernel_library_path()
         if not out.exists():
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            compile_atomic([nvcc] + NVCC_FLAGS + [str(p) for p in sorted(CSRC.glob("*.cu"))], out)
+            out.parent.mkdir(parents=True, exist_ok=True)
+            _build_kernel_library(out)
         lib = ctypes.CDLL(str(out))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cct_edge_bits.restype = ctypes.c_int

@@ -17,8 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from continuous_clustering_tpu.config import Config
-from continuous_clustering_tpu.constants import (
+from ..config import Config
+from ..constants import (
     DBG_DARKRED, DBG_GRAY, DBG_GREEN, DBG_LIGHTGRAY, DBG_ORANGE, DBG_RED,
     DBG_VIOLET, DBG_WHITE, DBG_YELLOW, DBG_YELLOWGREEN, GP_EGO_VEHICLE,
     GP_FOG, GP_GROUND, GP_OBSTACLE, GP_UNKNOWN,

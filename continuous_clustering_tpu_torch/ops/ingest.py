@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from continuous_clustering_tpu.config import Config
+from ..config import Config
 
 from .state import RingState, ring_put
 

@@ -1,0 +1,227 @@
+"""Device insertion: continuous range image construction from firings (port
+of ``continuous_clustering_tpu/ops/insertion.py``).
+
+Re-derives the reference's per-firing insertion
+(``src/clustering/continuous_clustering.cpp:105-292``) over a batch of
+firings.  Each firing is vectorized over the laser rows (azimuth/column
+unwrap, collision shift, nearer-point priority); only the rotation-unwrap
+recurrence (rearmost/foremost laser tracking) and the cell occupancy are
+sequential, exactly as in the reference:
+
+* azimuth is computed in the sensor frame (…cpp:142), distance and
+  inclination from the odom-relative vector (…cpp:189,232);
+* a point landing on an occupied cell first tries the next column
+  (…cpp:190-202) and is dropped if the cell holds a nearer point (…cpp:205);
+  dropped points do not update the rearmost/foremost tracking;
+* points behind the already-finished frontier are counted for unwrap
+  purposes but not written (…cpp:208-238);
+* a first firing spanning more than half a rotation flags a reset
+  (…cpp:252-260) and later firings of the batch are ignored.
+
+Layout: everything that does not depend on the carry (the pose transform,
+distance, azimuth, inclination, the column within the rotation) is computed
+for all F firings at once.  The firing loop carries the frontier scalars as
+0-d tensors and commits each firing's accepted claims into ``state.distance``
+in place (free cell = NaN); it never reads a value back to the host.  Then
+one batched write puts the other fields of each cell's winner, the accepted
+write with the final distance (every accepted overwrite is strictly nearer
+than its predecessor, …cpp:205).  The JAX version's groups of 8 firings per
+scan iteration are a TPU lowering device and change nothing in the result.
+
+Rounding, so that the CPU and the card agree bit for bit and the port
+equals the JAX package's CPU build wherever it can:
+
+* ``arctan2``, ``arcsin`` and ``sqrt`` are evaluated in f64 and rounded once
+  to f32; XLA's f32 arctan2 and arcsin are up to 1 and 2 ulp from that;
+* the pose transform, the distance and the continuous azimuth are the JAX
+  expressions elementwise (no matmul, so no TF32), with each multiply-add
+  that XLA's CPU compiler fuses into one fused multiply-add evaluated by
+  ``fma32``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..config import Config
+from .state import I32_MAX, RingState
+
+I32_MIN = -(2**31)
+
+
+class FiringBatch(NamedTuple):
+    """A batch of F firings with R rows each (host-assembled)."""
+
+    xyz: torch.Tensor           # (F, R, 3) f32 sensor frame, NaN = missing
+    pose: torch.Tensor          # (F, 3, 4) f32 odom_from_sensor
+    stamp_lo: torch.Tensor      # (F, R) u32 bits in i32
+    stamp_hi: torch.Tensor
+    uidx_lo: torch.Tensor
+    uidx_hi: torch.Tensor
+    intensity: torch.Tensor     # (F, R) i32
+    firing_index: torch.Tensor  # (F,) i32
+    valid: torch.Tensor         # (F,) bool, padding mask
+
+
+class InsertResult(NamedTuple):
+    state: RingState
+    rearmost_per_firing: torch.Tensor  # (F,) i32: prev_rearmost after each firing
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add: the f64
+    product of two f32 values is exact and the f64 sum is rounded to f32 (a
+    double rounding differs from the true FMA about once in 2**29 inputs).
+    Elementwise on both devices, so the CPU and the card agree."""
+    return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
+
+
+def _f64_round(fn, *args: torch.Tensor) -> torch.Tensor:
+    """``fn`` of f32 tensors evaluated in f64 and rounded once to f32."""
+    return fn(*[a.to(torch.float64) for a in args]).to(torch.float32)
+
+
+def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> InsertResult:
+    """Insert a batch of firings into the ring (in place); returns the state
+    and ``prev_rearmost`` after each firing (-1 before the first data)."""
+    num_cols = config.range_image.num_columns
+    rc = config.ring_buffer_max_columns
+    half = num_cols // 2
+    R = state.num_rows
+    F = batch.xyz.shape[0]
+    dev = state.device
+    az_width = torch.tensor(2.0 * math.pi / num_cols, dtype=torch.float32, device=dev)
+    pi32 = torch.tensor(math.pi, dtype=torch.float32, device=dev)
+    inf = float("inf")
+    rows = torch.arange(R, device=dev)
+
+    # ---- carry-independent per-point values, all firings at once ----------
+    pose = batch.pose
+    px, py, pz = batch.xyz[..., 0], batch.xyz[..., 1], batch.xyz[..., 2]  # (F, R)
+    sensor_pos = pose[:, :, 3]                                           # (F, 3)
+    # pose[i, 0] * px + pose[i, 1] * py + pose[i, 2] * pz + pose[i, 3], as
+    # XLA's CPU build fuses it
+    p_odom = [fma32(pose[:, i, 2:3], pz, fma32(pose[:, i, 0:1], px, pose[:, i, 1:2] * py))
+              + pose[:, i, 3:4] for i in range(3)]
+    p_rel = [p_odom[i] - sensor_pos[:, i:i + 1] for i in range(3)]
+    point_ok = ~torch.isnan(px) & batch.valid[:, None]
+    azimuth = _f64_round(torch.atan2, py, px)        # sensor frame (…cpp:142)
+    if config.range_image.sensor_is_clockwise:
+        inc_az = -azimuth + pi32
+    else:
+        inc_az = azimuth + pi32
+    col_pre = (inc_az / az_width).to(torch.int32)
+    # f64 sqrt rounded once: torch's f32 sqrt on the CPU is not correctly
+    # rounded (about 1 input in 10,000 lands 1 ulp low), the card's is
+    dist_all = _f64_round(torch.sqrt, fma32(p_rel[2], p_rel[2],
+                                            fma32(p_rel[1], p_rel[1], p_rel[0] * p_rel[0])))
+    dist_all = torch.where(point_ok, dist_all, float("nan"))
+    inclination = _f64_round(torch.asin, p_rel[2] / dist_all)
+
+    # ---- the sequential firing loop ------------------------------------------
+    prev_rearmost, prev_foremost = state.prev_rearmost, state.prev_foremost
+    first_unfinished, ring_start = state.first_unfinished, state.ring_start
+    ring_end, first_unpublished = state.ring_end, state.first_unpublished
+    reset_required = state.reset_required
+    dist = state.distance  # updated in place, NaN = free
+    lcols, gcols, writes, rots, finished = [], [], [], [], []
+    for f in range(F):
+        valid = point_ok[f] & ~reset_required
+        col_in_rot = torch.where(valid, col_pre[f], 0)
+        prev_rot = prev_rearmost // num_cols
+        gcol = prev_rot * num_cols + col_in_rot
+        diff = col_in_rot - prev_rearmost % num_cols
+        wrap_fwd = diff < -half                                  # …cpp:161
+        wrap_back = (prev_rearmost > 0) & (diff > half)          # …cpp:166
+        rot_off = torch.where(wrap_fwd, 1, torch.where(wrap_back, -1, 0))
+        gcol = gcol + rot_off * num_cols
+        distance = torch.where(valid, dist_all[f], float("nan"))
+
+        lcol = torch.where(valid, gcol % rc, 0)
+        old_enc = torch.nan_to_num(dist[rows, lcol], nan=inf)
+        next_lcol = (lcol + 1) % rc
+        next_enc = torch.nan_to_num(dist[rows, next_lcol], nan=inf)
+        shift = (old_enc < inf) & valid & (next_enc == inf)
+        lcol = torch.where(shift, next_lcol, lcol)
+        gcol = gcol + shift.to(torch.int32)
+        old2 = torch.where(shift, next_enc, old_enc)
+
+        refused = (old2 < inf) & (~valid | (distance >= old2))
+        tracked = valid & ~refused
+        behind = (first_unfinished >= 0) & (gcol < first_unfinished)
+        write = tracked & ~behind
+        # the claim: an accepted write is nearer than the cell's occupant
+        dist[rows, lcol] = torch.where(write, distance, dist[rows, lcol])
+
+        rearmost = torch.where(tracked, gcol, I32_MAX).amin()
+        foremost = torch.where(tracked, gcol, -1).amax()
+        any_tracked = tracked.any()
+        invalid_span = any_tracked & ((foremost - rearmost) > half)   # …cpp:252
+        ok = any_tracked & ~invalid_span
+        prev_rearmost = torch.where(ok & (rearmost > prev_rearmost), rearmost, prev_rearmost)
+        prev_foremost = torch.where(ok & (foremost > prev_foremost), foremost, prev_foremost)
+        have_data = prev_foremost >= 0
+        ring_start = torch.where(have_data & (ring_start == -1), prev_rearmost, ring_start)
+        first_unpublished = torch.where(
+            have_data & (first_unpublished == -1), prev_rearmost, first_unpublished)
+        ring_end = torch.where(have_data & (prev_foremost > ring_end), prev_foremost, ring_end)
+        first_unfinished = torch.where(
+            have_data & (first_unfinished == -1), prev_rearmost, first_unfinished)
+        # reference while loop (…cpp:289-291): columns [first_unfinished,
+        # prev_rearmost) are handed to segmentation
+        first_unfinished = torch.where(
+            have_data & (first_unfinished < prev_rearmost), prev_rearmost, first_unfinished)
+        reset_required = reset_required | invalid_span
+
+        lcols.append(lcol)
+        gcols.append(gcol)
+        writes.append(write)
+        rots.append(prev_rot + rot_off)
+        finished.append(torch.where(have_data, prev_rearmost, -1))
+
+    # ---- one batched write of each cell's winner -------------------------------
+    if F:
+        lcol = torch.stack(lcols).reshape(-1).to(torch.int64)
+        gcol = torch.stack(gcols).to(torch.int32)
+        write = torch.stack(writes).reshape(-1)
+        row_idx = rows.repeat(F)
+        final_d = dist[row_idx, lcol]
+        winner = write & (dist_all.reshape(-1) == final_d)
+        # cell -> winning entry (at most one per cell; losers contribute -1)
+        flat = row_idx * rc + lcol
+        owner = torch.full((R * rc,), -1, dtype=torch.int64, device=dev)
+        entry = torch.arange(F * R, device=dev)
+        owner.scatter_reduce_(0, flat, torch.where(winner, entry, -1), "amax")
+        src = owner[flat]
+        has = src >= 0
+        src = src.clamp_min(0)
+        two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=dev)
+        cont_az = fma32(two_pi, (torch.stack(rots) - state.origin_rot).to(torch.float32), inc_az)
+        vals = {
+            "x": p_odom[0], "y": p_odom[1], "z": p_odom[2],
+            "azimuth": azimuth, "inclination": inclination, "cont_az": cont_az,
+            "gcol": gcol,
+            "stamp_lo": batch.stamp_lo, "stamp_hi": batch.stamp_hi,
+            "uidx_lo": batch.uidx_lo, "uidx_hi": batch.uidx_hi,
+            "intensity": batch.intensity,
+            "firing_index": batch.firing_index[:, None].expand(F, R),
+        }
+        for name, v in vals.items():
+            arr = getattr(state, name)
+            cur = arr[row_idx, lcol]
+            arr[row_idx, lcol] = torch.where(has, v.reshape(-1).to(arr.dtype)[src], cur)
+        rearmost_per_firing = torch.stack(finished).to(torch.int32)
+    else:
+        rearmost_per_firing = torch.zeros((0,), dtype=torch.int32, device=dev)
+
+    state.prev_rearmost = prev_rearmost.to(torch.int32)
+    state.prev_foremost = prev_foremost.to(torch.int32)
+    state.first_unfinished = first_unfinished.to(torch.int32)
+    state.ring_start = ring_start.to(torch.int32)
+    state.ring_end = ring_end.to(torch.int32)
+    state.first_unpublished = first_unpublished.to(torch.int32)
+    state.reset_required = reset_required
+    return InsertResult(state=state, rearmost_per_firing=rearmost_per_firing)

@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from continuous_clustering_tpu.config import Config
+from ..config import Config
 
 I32_MAX = 2**31 - 1
 # 0xFFFFFFFF as an int32 bit pattern
@@ -158,6 +158,12 @@ def init_state(config: Config, num_rows: int, device) -> RingState:
         cc_failed=scalar(False, torch.bool),
         incl_diffs=full(float("nan"), torch.float32, (num_rows,)),
     )
+
+
+def copy_state(state: RingState) -> RingState:
+    """A copy of every tensor of ``state`` (the ops update states in place)."""
+    return RingState(**{f.name: getattr(state, f.name).clone()
+                        for f in dataclasses.fields(state)})
 
 
 def ring_index(lcol0, width: int, rc: int, device) -> torch.Tensor:

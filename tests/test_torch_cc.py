@@ -25,7 +25,7 @@ import jax.numpy as jnp
 
 from continuous_clustering_tpu.ops import association as jassoc
 from continuous_clustering_tpu.ops.cc_pallas import edge_bits_pallas, window_cc_pallas
-from continuous_clustering_tpu_torch.convert import state_from_numpy
+from continuous_clustering_tpu_torch.convert import config_from_dataclass, state_from_numpy
 from continuous_clustering_tpu_torch.ops import cc_cuda
 from continuous_clustering_tpu_torch.ops.association import window_arrays
 
@@ -47,7 +47,7 @@ def window(request):
         j = jassoc._edge_bits(cfg, js, jassoc.AssocInputs(gcol0=blk.gcol0, n_cols=blk.n_cols), B)
     jbits, _, jL0, jactive, _, _, jmad, jactive_b, _, _ = j
     ts = state_from_numpy(jax_state_numpy(js), "cpu")
-    win = window_arrays(cfg, ts, torch.tensor(int(blk.gcol0), dtype=torch.int32),
+    win = window_arrays(config_from_dataclass(cfg), ts, torch.tensor(int(blk.gcol0), dtype=torch.int32),
                         torch.tensor(int(blk.n_cols), dtype=torch.int32), B)
     H = cfg.clustering.max_steps_in_row
     az = jnp.float32(2.0 * math.pi / cfg.range_image.num_columns)

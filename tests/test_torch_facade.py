@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from continuous_clustering_tpu.evaluation.partition import partition_agreement
-from continuous_clustering_tpu.io.point_cloud import ProcessingStage
+from continuous_clustering_tpu_torch.convert import config_from_dataclass
+from continuous_clustering_tpu_torch.io.point_cloud import ProcessingStage
 from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
 
 from .test_pipeline import NUM_ROWS, collect_oracle, collect_pipeline, make_stream, small_config
@@ -33,7 +34,8 @@ def _needs_gxx():
 
 
 def collect_port(cfg, firings, poses, batch=64, pipe_out=None):
-    pipe = ContinuousClustering(cfg, firing_batch_size=batch, device="cpu")
+    pipe = ContinuousClustering(config_from_dataclass(cfg), firing_batch_size=batch,
+                                device="cpu")
     pipe.reset(NUM_ROWS)
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
     labels, ground, clusters = {}, {}, []
@@ -111,7 +113,7 @@ def test_get_columns_other_stage_agrees_with_native_assembly():
 def test_cc_failed_and_overflow_raise_distinct_errors(flag, match):
     cfg = small_config(stop_after_association=False)
     firings, poses = make_stream(num_frames=1)
-    pipe = ContinuousClustering(cfg, firing_batch_size=64, device="cpu")
+    pipe = ContinuousClustering(config_from_dataclass(cfg), firing_batch_size=64, device="cpu")
     pipe.reset(NUM_ROWS)
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
     for f, p in zip(firings[:64], poses[:64]):
@@ -130,7 +132,8 @@ def test_azimuth_rebase_keeps_the_partition():
     cfg = small_config(stop_after_association=False)
     firings, poses = make_stream(num_frames=3, seed=11)
     base, _, _ = collect_port(cfg, firings, poses)
-    pipe = ContinuousClustering(cfg, firing_batch_size=64, rebase_after_rotations=0,
+    pipe = ContinuousClustering(config_from_dataclass(cfg), firing_batch_size=64,
+                                rebase_after_rotations=0,
                                 device="cpu")
     pipe.reset(NUM_ROWS)
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))

@@ -1,8 +1,13 @@
-"""The port runs without JAX: no module of it imports ``jax``.
+"""The port stands alone: no module of it imports ``jax`` or anything of the
+JAX package ``continuous_clustering_tpu``, and none reads a path inside it.
 
-The machine with the GPU has no JAX, so every module of
-``continuous_clustering_tpu_torch`` (and ``chip_smoke.py``) must import in a
-process where ``jax`` never enters ``sys.modules``.
+The machine with the GPU has no JAX, and the port keeps its own copies of
+what it shares with the JAX package (configuration, constants, point-cloud
+schemas, synthetic scenes, the oracle, the C++ host sources).  So every
+module of ``continuous_clustering_tpu_torch`` and ``chip_smoke.py`` must
+import in a process where neither ``jax`` nor ``continuous_clustering_tpu``
+(or any of its submodules) enters ``sys.modules``, and no source of the port
+names the JAX package in an import or a path.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import continuous_clustering_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "continuous_clustering_tpu_torch"
+JAX_PKG = "continuous_clustering_tpu"
 
 
 def port_modules():
@@ -25,15 +31,23 @@ def port_modules():
                                               prefix="continuous_clustering_tpu_torch."))
 
 
+def port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    return files
+
+
 def test_every_port_module_imports_without_jax():
     mods = port_modules()
-    assert "continuous_clustering_tpu_torch.ops.cc_cuda" in mods
+    for m in ("ops.cc_cuda", "ops.insertion", "ops.oracle", "models.checkpoint",
+              "models.throughput", "tools.bench_setup", "config", "evaluation.synthetic"):
+        assert f"continuous_clustering_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', {JAX_PKG!r}))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -44,7 +58,28 @@ def test_every_port_module_imports_without_jax():
 
 def test_no_port_source_names_jax():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.MULTILINE)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
-    offenders = [str(p.relative_to(ROOT)) for p in files if pat.search(p.read_text())]
+    offenders = [str(p.relative_to(ROOT)) for p in port_sources() if pat.search(p.read_text())]
     assert not offenders, offenders
+
+
+def test_no_port_source_imports_or_reads_the_jax_package():
+    """No import of ``continuous_clustering_tpu`` or a submodule, and no
+    string that names its directory as a path segment (``"continuous_
+    clustering_tpu"`` on its own, or ``continuous_clustering_tpu/`` outside
+    a docstring reference to the reference's file and line, which the
+    kernel table in ``chip_smoke.py`` reports)."""
+    imp = re.compile(rf"^\s*(import|from)\s+{JAX_PKG}(\.|\s|$)", re.MULTILINE)
+    seg = re.compile(rf"""["']{JAX_PKG}["']""")
+    path_use = re.compile(rf"""(Path|open|join|glob)\([^)]*{JAX_PKG}[/"']""")
+    offenders = []
+    for p in port_sources():
+        text = p.read_text()
+        for what, pat in (("import", imp), ("path segment", seg), ("path", path_use)):
+            if pat.search(text):
+                offenders.append(f"{p.relative_to(ROOT)}: {what}")
+    assert not offenders, offenders
+    native = (PORT / "native.py").read_text()
+    assert 'SRC_DIR = Path(__file__).resolve().parent / "csrc" / "host"' in native
+    assert sorted(p.name for p in (PORT / "csrc" / "host").iterdir()) == [
+        "decode_offload.cpp", "insertion.cpp", "kitti.cpp", "ouster.cpp", "readout.cpp",
+        "runtime.hpp", "velodyne.cpp"]

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain twins on the card.
 
-Marked ``cuda``: each test skips without a CUDA device.  Imports no JAX, so
-the file runs on a machine with only PyTorch and the CUDA toolkit:
+Marked ``cuda``: each test skips without a CUDA device.  Imports nothing of
+JAX or of the JAX package, so the file runs on a machine with only PyTorch
+and the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -18,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from continuous_clustering_tpu.config import kitti_config
-from continuous_clustering_tpu.evaluation.synthetic import frame_to_firings, make_scene, raycast_frame
+from continuous_clustering_tpu_torch.config import kitti_config
+from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firings, make_scene,
+                                                                  raycast_frame)
 
 pytestmark = pytest.mark.cuda
 

@@ -15,7 +15,8 @@ import torch
 import jax.numpy as jnp
 
 from continuous_clustering_tpu.ops import state as jstate
-from continuous_clustering_tpu_torch.convert import state_from_numpy, state_to_numpy
+from continuous_clustering_tpu_torch.convert import (config_from_dataclass, state_from_numpy,
+                                                     state_to_numpy)
 from continuous_clustering_tpu_torch.ops import state as tstate
 
 from .test_torch_step import (assert_states_equal, jax_state_numpy, one_torch_thread,  # noqa: F401
@@ -33,7 +34,7 @@ def streamed():
 def test_init_state_matches_jax_and_round_trips():
     cfg = small_cfg()
     js = jax_state_numpy(jstate.init_state(cfg, R))
-    ts = tstate.init_state(cfg, R, "cpu")
+    ts = tstate.init_state(config_from_dataclass(cfg), R, "cpu")
     assert_states_equal(js, state_to_numpy(ts), "init")
     back = state_to_numpy(state_from_numpy(js, "cpu"))
     for name, a in js.items():

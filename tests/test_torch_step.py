@@ -34,7 +34,7 @@ from continuous_clustering_tpu.ops.ground_segmentation import SegmentInputs, gro
 from continuous_clustering_tpu.ops.ingest import ColumnBlock as JaxColumnBlock
 from continuous_clustering_tpu.ops.ingest import ingest_columns
 from continuous_clustering_tpu.ops.state import init_state as jax_init
-from continuous_clustering_tpu_torch.convert import state_to_numpy
+from continuous_clustering_tpu_torch.convert import config_from_dataclass, state_to_numpy
 from continuous_clustering_tpu_torch.models.step import SegPoses, pipeline_step_block
 from continuous_clustering_tpu_torch.ops.ingest import ColumnBlock
 from continuous_clustering_tpu_torch.ops.readout import FETCH_ORDER
@@ -224,14 +224,15 @@ def run_both(cfg, frames, batch, slab_cols=0, slab_head=0):
     steps = column_blocks(frames, batch)
     num_rows = frames[0].shape[0]
     js = jax_init(cfg, num_rows)
-    ts = init_state(cfg, num_rows, "cpu")
+    tcfg = config_from_dataclass(cfg)
+    ts = init_state(tcfg, num_rows, "cpu")
     jstep = jax.jit(lambda s, b, p: jax_step(cfg, s, b, p, jnp.float32(HSG), batch,
                                              slab_cols=slab_cols, slab_head=slab_head))
     published = 0
     for k, (blk, segp) in enumerate(steps):
         js, jinfo = jstep(js, blk, segp)
         tblk, tseg = to_torch_block(blk, segp)
-        ts, tinfo = pipeline_step_block(cfg, ts, tblk, tseg, torch.tensor(HSG), batch,
+        ts, tinfo = pipeline_step_block(tcfg, ts, tblk, tseg, torch.tensor(HSG), batch,
                                         slab_cols=slab_cols, slab_head=slab_head)
         where = f"step {k}"
         assert_states_equal(jax_state_numpy(js), state_to_numpy(ts), where)
