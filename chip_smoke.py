@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the native host library and the two CUDA kernels from the sources in
+Builds the native host library and the CUDA kernels from the sources in
 this checkout (into ``continuous_clustering_tpu_torch/build/``, the builds
 side by side), then:
 
 1. prints the card's name and power limit and the build times;
-2. holds each kernel against its plain PyTorch twin on the card, on a real
-   association window of the KITTI-shaped synthetic stream (R = 64,
-   B = 416), and times both with CUDA events;
+2. holds K1 and K2 against their plain PyTorch twins on the card (bits;
+   labels, converged flag and round count) on two real association windows
+   at R = 64, B = 416 (the KITTI-shaped stream, and the densest of a few
+   windows of the ``near_field`` throughput scene), on a snake window that
+   runs into the 64-round cap, and on a random window at R = 128, B = 512,
+   and times both kernels on both real windows with CUDA events;
 3. checks the port facade on the card against the sequential oracle at
    32 x 220 (partition >= 0.995, ground labels exact) and on the serpentine
    stream (converges, stays one component);
@@ -24,15 +27,20 @@ side by side), then:
 6. checkpoints half of the phase-3 stream on the card, resumes it in a fresh
    facade and holds the partition against the uninterrupted run (>= 0.99);
 7. runs the periodic block runner (``tools/bench_setup.py``) on the three
-   throughput scenes and reports the steady rate of each.
+   throughput scenes and reports the steady rate of each; the ``standard``
+   scene runs twice and must give the same checksum;
+8. runs the CC sweep's probe variants through their tool
+   (``tools/sweep_probe.py``) at upper = 1, 7 and 21, each against its
+   twin, and times each kernel.
 
-Phases 3 to 7 drive the port's paths; the kernels' launch counters are set
-to 0 just before each and read just after, and each must have launched both
-kernels.  Every phase raises on failure.  The line before the last is a JSON
-object with one entry per kernel (launches summed over phases 3-7); the last
-line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}``.  Exits non-zero, printing no result, without a CUDA device or
-outside a checkout of the repository.  Imports nothing of JAX or of the JAX
+Phases 3 to 8 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each of phases 3-7 must have
+launched K1 and K2, phase 8 the probe kernel.  Every phase raises on
+failure.  The line before the last is a JSON object with one entry per
+kernel (launches summed over phases 3-8); the last line is ``{"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": ...}}``.  Exits
+non-zero, printing no result, without a CUDA device or outside a checkout
+of the repository.  Imports nothing of JAX or of the JAX
 package.
 """
 
@@ -61,6 +69,13 @@ F32_OPS_PER_S = 67e12
 # test (sub, abs, compare), the squared distance (3 sub, 3 mul, 2 add) and
 # the radius compare
 K1_OPS_PER_PAIR = 12
+# integer operations per cell and step of a probe variant (lane index,
+# mask, select, min)
+PROBE_OPS_PER_CELL_STEP = 4
+# device cycles the card sleeps before a timed launch, so that the launch
+# is enqueued before the start event runs and the time is the device's
+# (about 1 ms at the H100's clock)
+SLEEP_CYCLES = 2_000_000
 
 
 def check(cond, msg: str) -> None:
@@ -68,7 +83,12 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, n: int = 20, warmup: int = 3, device_only: bool = False) -> float:
+    """Median of ``n`` CUDA-event times of ``fn``.  By default the time runs
+    from the start event to the end event as the host issues them, so it
+    includes the host's time to enqueue ``fn``; with ``device_only`` the
+    card first sleeps ``SLEEP_CYCLES`` so ``fn`` is enqueued before the
+    start event runs, and the time is the device's alone."""
     import torch
 
     for _ in range(warmup):
@@ -78,6 +98,8 @@ def median_ms(fn, n: int = 20, warmup: int = 3) -> float:
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -91,20 +113,21 @@ class Launches:
     before a phase and added up just after it."""
 
     def __init__(self):
-        from continuous_clustering_tpu_torch.ops import cc_cuda
+        from continuous_clustering_tpu_torch.ops import cc_cuda, sweep_probe
 
-        self.cc = cc_cuda
-        self.total = {k: 0 for k in cc_cuda.LAUNCHES}
+        self.modules = (cc_cuda, sweep_probe)
+        self.total = {k: 0 for m in self.modules for k in m.LAUNCHES}
 
     def start(self):
-        self.cc.reset_launch_counts()
+        for m in self.modules:
+            m.reset_launch_counts()
 
-    def stop(self, phase: str):
-        got = dict(self.cc.LAUNCHES)
-        check(all(v > 0 for v in got.values()), f"{phase}: a kernel was not launched: {got}")
+    def stop(self, phase: str, kernels=("edge_bits", "window_cc")):
+        got = {k: v for m in self.modules for k, v in m.LAUNCHES.items()}
+        check(all(got[k] > 0 for k in kernels), f"{phase}: a kernel was not launched: {got}")
         for k, v in got.items():
             self.total[k] += v
-        return got
+        return {k: got[k] for k in kernels}
 
 
 def kitti_stream(num_rows, num_cols, n_rev, seed=5, num_boxes=14):
@@ -178,20 +201,27 @@ def run_facade(cfg, num_rows, firings, device, batch, stop_after=None, insertion
     return labels, ground, clusters, pipe
 
 
-def real_window(cfg, device, firings):
-    """Kernel inputs of the last association step after 1.5 revolutions of
-    the full-size stream: a real (R, H + B) window of the main path."""
+def real_window(cfg, device, firings, stops):
+    """Kernel inputs of the association step after each of ``stops``
+    firings of the full-size stream, real (R, H + B) windows of the main
+    path: the one with the most active cells."""
     import torch
 
     from continuous_clustering_tpu_torch.ops.association import window_arrays
 
     pipe = make_facade(cfg, FULL_ROWS, device, B_FIRINGS)
-    for f in firings[: 3 * cfg.range_image.num_columns // 2]:
-        pipe.add_firing(f, np.eye(4))
     B = B_FIRINGS + 32
-    state = pipe.state
-    gcol0 = state.first_unfinished - B
-    return window_arrays(cfg, state, gcol0, torch.tensor(B, dtype=torch.int32, device=device), B)
+    best, fed = None, 0
+    for stop in stops:
+        for f in firings[fed:stop]:
+            pipe.add_firing(f, np.eye(4))
+        fed = stop
+        state = pipe.state
+        win = window_arrays(cfg, state, state.first_unfinished - B,
+                            torch.tensor(B, dtype=torch.int32, device=device), B)
+        if best is None or int(win.active_w.sum()) > int(best.active_w.sum()):
+            best = win
+    return best
 
 
 def agreement_with_cpu(gpu_labels, cpu_labels, what):
@@ -233,6 +263,25 @@ def build_all():
     return times
 
 
+def check_window_cc(what, bits, L0, max_wp, H, V, converged):
+    """K2 on the card against its twin: labels, converged flag and round
+    count exactly; returns the round count."""
+    import torch
+
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+
+    lab, ok, rounds = cc_cuda.window_cc(bits, L0, max_wp, H=H, V=V)
+    lab_ref, ok_ref, rounds_ref = cc_cuda.window_cc_reference(bits, L0, max_wp, H=H, V=V)
+    torch.cuda.synchronize()
+    check(torch.equal(lab, lab_ref), f"{what}: K2 labels differ from the plain twin "
+          f"(max |diff| {int((lab.long() - lab_ref.long()).abs().max())})")
+    check(bool(ok) == bool(ok_ref) == converged,
+          f"{what}: converged kernel {bool(ok)}, plain {bool(ok_ref)}, expected {converged}")
+    check(int(rounds) == int(rounds_ref),
+          f"{what}: rounds kernel {int(rounds)}, plain {int(rounds_ref)}")
+    return int(rounds)
+
+
 def kernel_bounds(win, bits, rounds, H, V):
     """Least time the card could take for each kernel's work on this
     window: the larger of bytes over the HBM rate and f32 operations over
@@ -259,6 +308,17 @@ def kernel_bounds(win, bits, rounds, H, V):
                          bound_by="bytes" if t_bytes >= t_ops else "operations",
                          bytes=nbytes, ops=ops)
     return out
+
+
+def probe_bounds(bits, L, upper):
+    """Least time for one probe launch at ``upper``: its bytes (bits, and the
+    labels in and out) over the HBM rate, or the steps of its slowest
+    variant (3 per column offset) over every cell, at the f32 rate."""
+    nbytes = bits.numel() * 4 + 2 * L.numel() * 4
+    ops = 3 * upper * L.numel() * PROBE_OPS_PER_CELL_STEP
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, ops=ops)
 
 
 def device_profile(fn):
@@ -303,9 +363,10 @@ def main() -> int:
     from continuous_clustering_tpu_torch.evaluation.synthetic import (
         frame_to_firings, make_scene, raycast_frame)
     from continuous_clustering_tpu_torch.models.checkpoint import load_state, save_state
-    from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.ops import cc_cuda, sweep_probe
     from continuous_clustering_tpu_torch.ops.oracle import OracleContinuousClustering
-    from continuous_clustering_tpu_torch.tools import bench_setup
+    from continuous_clustering_tpu_torch.tools import bench_setup, cc_windows
+    from continuous_clustering_tpu_torch.tools import sweep_probe as probe_tool
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -326,34 +387,53 @@ def main() -> int:
     H, V = cl.max_steps_in_row, cl.max_steps_in_column
     n_cols = cfg.range_image.num_columns
     firings = kitti_stream(FULL_ROWS, n_cols, n_rev=5)
-    win = real_window(cfg, dev, firings)
+    near_firings, _ = bench_setup.make_bench_scene(FULL_ROWS, n_cols, "near_field")
+    windows = {
+        "kitti": real_window(cfg, dev, firings, [3 * n_cols // 2]),
+        "near_field": real_window(cfg, dev, near_firings, range(n_cols // 4, n_cols, n_cols // 8)),
+    }
     max_d2 = float(np.float32(cl.max_distance) * np.float32(cl.max_distance))
-    k1_args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
     k1_kw = dict(H=H, V=V, max_d2=max_d2)
-    bits = cc_cuda.edge_bits(*k1_args, **k1_kw)
-    bits_ref = cc_cuda.edge_bits_reference(*k1_args, **k1_kw)
-    torch.cuda.synchronize()
-    n_set = int(np.unpackbits(bits.cpu().numpy().view(np.uint8)).sum())
-    k1_err = int((bits.long() - bits_ref.long()).abs().max())
-    check(n_set > 0, "the real window has no edges")
-    check(torch.equal(bits, bits_ref), f"K1 bits differ from the plain twin (max |diff| {k1_err})")
-    max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
-    lab, ok, rounds = cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V)
-    lab_ref, ok_ref, rounds_ref = cc_cuda.window_cc_reference(bits, win.L0, max_wp, H=H, V=V)
-    torch.cuda.synchronize()
-    k2_err = int((lab.long() - lab_ref.long()).abs().max())
-    check(torch.equal(lab, lab_ref), f"K2 labels differ from the plain twin (max |diff| {k2_err})")
-    check(bool(ok) == bool(ok_ref) and bool(ok), "K2 converged flag differs or is false")
-    k1_ms = median_ms(lambda: cc_cuda.edge_bits(*k1_args, **k1_kw))
-    k1_plain_ms = median_ms(lambda: cc_cuda.edge_bits_reference(*k1_args, **k1_kw), n=5)
-    k2_ms = median_ms(lambda: cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V))
-    k2_plain_ms = median_ms(lambda: cc_cuda.window_cc_reference(bits, win.L0, max_wp, H=H, V=V), n=5)
-    bounds = kernel_bounds(win, bits, rounds, H, V)
-    print(f"phase 2: window R={win.active_w.shape[0]} WCOL={win.active_w.shape[1]}, "
-          f"{int(win.active_w.sum())} active cells, {n_set} edge bits set; K1 bits equal; "
-          f"K2 labels equal (rounds kernel {int(rounds)}, plain {int(rounds_ref)}); "
-          f"K1 {k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms, bound {bounds['edge_bits']}; "
-          f"K2 {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms, bound {bounds['window_cc']}")
+    k2 = {}
+    for wname, win in windows.items():
+        k1_args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
+        bits = cc_cuda.edge_bits(*k1_args, **k1_kw)
+        bits_ref = cc_cuda.edge_bits_reference(*k1_args, **k1_kw)
+        torch.cuda.synchronize()
+        n_set = int(np.unpackbits(bits.cpu().numpy().view(np.uint8)).sum())
+        check(n_set > 0, f"{wname}: the real window has no edges")
+        check(torch.equal(bits, bits_ref), f"{wname}: K1 bits differ from the plain twin "
+              f"(max |diff| {int((bits.long() - bits_ref.long()).abs().max())})")
+        max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
+        rounds = check_window_cc(f"{wname} window", bits, win.L0, max_wp, H, V, converged=True)
+        t = dict(
+            k1_ms=median_ms(lambda: cc_cuda.edge_bits(*k1_args, **k1_kw), device_only=True),
+            k1_host_ms=median_ms(lambda: cc_cuda.edge_bits(*k1_args, **k1_kw)),
+            k1_plain_ms=median_ms(lambda: cc_cuda.edge_bits_reference(*k1_args, **k1_kw), n=5),
+            k2_ms=median_ms(lambda: cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V),
+                            device_only=True),
+            k2_host_ms=median_ms(lambda: cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V)),
+            k2_plain_ms=median_ms(
+                lambda: cc_cuda.window_cc_reference(bits, win.L0, max_wp, H=H, V=V), n=5),
+            bounds=kernel_bounds(win, bits, rounds, H, V))
+        k2[wname] = t
+        print(f"phase 2: {card}: {wname} window R={win.active_w.shape[0]} "
+              f"WCOL={win.active_w.shape[1]}, {int(win.active_w.sum())} active cells, "
+              f"{n_set} edge bits set, max_wp {int(max_wp)}; K1 bits equal; K2 labels, "
+              f"converged and rounds ({rounds}) equal; K1 {t['k1_ms']:.4f} ms device "
+              f"({t['k1_host_ms']:.4f} ms with the host's enqueue) vs plain "
+              f"{t['k1_plain_ms']:.4f} ms, bound {t['bounds']['edge_bits']}; K2 "
+              f"{t['k2_ms']:.4f} ms device ({t['k2_host_ms']:.4f} ms with the host's enqueue) "
+              f"vs plain {t['k2_plain_ms']:.4f} ms, bound {t['bounds']['window_cc']}")
+    # K2 beyond the streamed windows: the round cap, and a window larger than
+    # one block's shared memory
+    synthetic = {"snake": (cc_windows.snake_window(FULL_ROWS, B_FIRINGS + 32, H, V), False),
+                 "R=128 B=512": (cc_windows.random_window(128, 512, H, V, seed=3), True)}
+    for sname, (sw, converged) in synthetic.items():
+        sbits, sL0, swp = (a.to(dev) for a in sw)
+        rounds = check_window_cc(f"{sname} window", sbits, sL0, swp, H, V, converged)
+        print(f"phase 2: {sname} window {tuple(sL0.shape)}: K2 labels, converged "
+              f"({converged}) and rounds ({rounds}) equal the plain twin's")
 
     launches = Launches()
 
@@ -541,6 +621,7 @@ def main() -> int:
           f"launches {got}")
 
     # ---- phase 7: the periodic block runner on the throughput scenes --------
+    # ``standard`` runs twice from the same state: the checksum must repeat
     for name in bench_setup.SCENES:
         bcfg, bpipe = bench_setup.make_bench_pipe(num_rows=FULL_ROWS, num_cols=n_cols,
                                                   ring_revs=10, batch=B_FIRINGS, nth=1,
@@ -548,35 +629,73 @@ def main() -> int:
         bfirings, n_points = bench_setup.make_bench_scene(FULL_ROWS, n_cols, name)
         bscene = bench_setup.capture_revolution(bpipe, bfirings, n_cols)
         launches.start()
-        res = bench_setup.measure_periodic_rate(bcfg, bpipe, bscene, n_cols, n_points, N=1,
-                                                pairs=2, slab_cols=bpipe._slab_W,
-                                                slab_head=bpipe._slab_W1)
+        runs = [bench_setup.measure_periodic_rate(bcfg, bpipe, bscene, n_cols, n_points, N=1,
+                                                  pairs=2, slab_cols=bpipe._slab_W,
+                                                  slab_head=bpipe._slab_W1)
+                for _ in range(2 if name == "standard" else 1)]
         got = launches.stop(f"phase 7 {name}")
-        check(got["edge_bits"] == got["window_cc"] == res["k0"],
-              f"{name}: launches {got} != steps {res['k0']}")
-        check(not res["overflow"] and not res["cc_failed"], f"{name}: overflow or cc_failed")
-        total_revs = res["k0"] // res["per_rev"]
-        fu = int(res["state"].first_unpublished)
-        check(fu > (total_revs - 3) * n_cols, f"{name}: frontier {fu} after {total_revs} revs")
-        print(f"phase 7: {card}: periodic runner, scene {name} ({n_points} points/rev, "
-              f"{res['per_rev']} steps/rev, slab included): {res['pts_per_s']:.0f} points/s, "
-              f"{res['ms_per_rev']:.2f} ms/rev, diff_ok {res['diff_ok']}, raw 2N "
-              f"{res['raw_2n_pts_per_s']:.0f} points/s; t1 {res['t1s_ms']} ms, "
-              f"t2 {res['t2s_ms']} ms; frontier {fu} after {total_revs} revs; "
-              f"checksum {res['checksum']}; launches {got}")
+        steps = sum(res["k0"] for res in runs)
+        check(got["edge_bits"] == got["window_cc"] == steps,
+              f"{name}: launches {got} != steps {steps}")
+        check(len({res["checksum"] for res in runs}) == 1,
+              f"{name}: checksums of repeated runs differ: {[r['checksum'] for r in runs]}")
+        for res in runs:
+            check(not res["overflow"] and not res["cc_failed"], f"{name}: overflow or cc_failed")
+            total_revs = res["k0"] // res["per_rev"]
+            fu = int(res["state"].first_unpublished)
+            check(fu > (total_revs - 3) * n_cols,
+                  f"{name}: frontier {fu} after {total_revs} revs")
+            print(f"phase 7: {card}: periodic runner, scene {name} ({n_points} points/rev, "
+                  f"{res['per_rev']} steps/rev, slab included): {res['pts_per_s']:.0f} "
+                  f"points/s, {res['ms_per_rev']:.2f} ms/rev, diff_ok {res['diff_ok']}, raw 2N "
+                  f"{res['raw_2n_pts_per_s']:.0f} points/s; t1 {res['t1s_ms']} ms, "
+                  f"t2 {res['t2s_ms']} ms; frontier {fu} after {total_revs} revs; "
+                  f"checksum {res['checksum']}")
+        print(f"phase 7: scene {name}: {len(runs)} run(s), checksum "
+              f"{runs[0]['checksum']}{' repeated' if len(runs) > 1 else ''}; launches {got}")
 
-    timing = {"edge_bits": (k1_ms, k1_plain_ms, k1_err), "window_cc": (k2_ms, k2_plain_ms, k2_err)}
+    # ---- phase 8: the CC sweep's probe variants -----------------------------
+    launches.start()
+    results = probe_tool.run(dev)
+    got = launches.stop("phase 8", kernels=("sweep_probe",))
+    failed = [f"{n}: {r}" for n, r in results if r != "OK"]
+    check(not failed, f"probe variants differ from their twins: {failed}")
+    n_launch = len(sweep_probe.VARIANTS) * len(probe_tool.UPPERS)
+    check(got["sweep_probe"] == n_launch, f"probe launches {got} != {n_launch}")
+    bits_np, L_np = probe_tool.probe_inputs(0)
+    pbits, pL = torch.from_numpy(bits_np).to(dev), torch.from_numpy(L_np).to(dev)
+    pupper = torch.tensor(H + 1, dtype=torch.int32, device=dev)
+    probe_ms = {}
+    for vname in sweep_probe.VARIANTS:
+        probe_ms[vname] = (
+            median_ms(lambda: sweep_probe.sweep_probe(vname, pbits, pupper, pL),
+                      device_only=True),
+            median_ms(lambda: sweep_probe.sweep_probe_reference(vname, pbits, pupper, pL), n=5))
+    slowest = max(probe_ms, key=lambda v: probe_ms[v][0])
+    probe_bound = probe_bounds(pbits, pL, H + 1)
+    print(f"phase 8: {card}: {len(results)} probe variants equal their twins at upper "
+          f"{list(probe_tool.UPPERS)}; launches {got}; at upper {H + 1}, ms device / plain: "
+          + ", ".join(f"{v} {k:.4f} / {p:.3f}" for v, (k, p) in probe_ms.items())
+          + f"; bound {probe_bound}")
+
+    kit = k2["kitti"]
+    timing = {"edge_bits": (kit["k1_ms"], kit["k1_plain_ms"], kit["bounds"]["edge_bits"]),
+              "window_cc": (kit["k2_ms"], kit["k2_plain_ms"], kit["bounds"]["window_cc"]),
+              "sweep_probe": (*probe_ms[slowest], probe_bound)}
     sources = {"edge_bits": ("continuous_clustering_tpu_torch/csrc/edge_bits.cu",
                              "continuous_clustering_tpu/ops/cc_pallas.py:444"),
                "window_cc": ("continuous_clustering_tpu_torch/csrc/window_cc.cu",
-                             "continuous_clustering_tpu/ops/cc_pallas.py:202")}
+                             "continuous_clustering_tpu/ops/cc_pallas.py:202"),
+               "sweep_probe": ("continuous_clustering_tpu_torch/csrc/sweep_probe.cu",
+                               "scripts/pallas_bisect.py:26")}
+    # every kernel equals its twin exactly (checked above): max_abs_err 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches.total[name],
-         "max_abs_err": timing[name][2], "ms": timing[name][0], "plain_ms": timing[name][1],
-         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "max_abs_err": 0, "ms": timing[name][0], "plain_ms": timing[name][1],
+         "bound_ms": timing[name][2]["bound_ms"], "bound_by": timing[name][2]["bound_by"],
          "library_ms": None}
-        for name in ("edge_bits", "window_cc")]}))
+        for name in ("edge_bits", "window_cc", "sweep_probe")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,124 +1,358 @@
 // K2: connected components of the association window, the whole min-label
-// fixpoint in one launch.
+// fixpoint in one cooperative launch over every SM.
 //
 // Replaces window_cc_pallas + sweep_pallas / _sweep_kernel
-// (continuous_clustering_tpu/ops/cc_pallas.py).  Each round:
-//   1. a Gauss-Seidel sweep over every forward edge of K1's bits (column
-//      offsets dc < min(max_wp, H) + 1): both ends take the smaller label;
+// (continuous_clustering_tpu/ops/cc_pallas.py).  Each round is the plain
+// twin's (ops/cc_cuda.py::window_cc_reference) Jacobi round:
+//   1. new = old; for every set bit p -> q of K1's bits (column offsets
+//      dc < min(max_wp, H) + 1, row offsets inside the window):
+//      new[p] = min(new[p], old[q]) and new[q] = min(new[q], old[p]);
 //   2. the segmented row min-scan through (dr = 0, dc = 1) links, from
-//      round 0;
+//      round 0: every cell takes the minimum over its linked run;
 //   3. the segmented column min-scan through (dr = -1, dc = 0) links, from
-//      round 1.
+//      round 1, the same way;
+//   4. changed = any(new != old).
 // It stops after a round that changed nothing, or after max_rounds rounds
-// (then converged = 0, which the step reports as cc_failed).  Labels,
-// converged and rounds stay on the device: no host sync per round.
+// (then converged = 0, which the step reports as cc_failed).  Min is
+// commutative, so the order in which step 1's atomics land changes nothing:
+// labels, converged and the round count equal the twin's on every input.
+// Nothing leaves the device: no host sync per round.
 //
-// The fixpoint is the per-component minimum of the seed labels whatever the
-// order of updates, so the labels equal the plain (Jacobi) twin's exactly;
-// the round count may differ.
+// Layout.  The labels live in global memory twice, `old` and `labels`
+// (112 KB each at R = 64, B = 416, resident in the 50 MB L2), so the window
+// has no size limit but the card's memory: step 1 reads old and lowers
+// labels; the last scan of a round compares each final label with old and
+// copies it there, so both hold the round's result and the next round
+// starts from new = old.  The grid is one block of kThreads per SM, all
+// co-resident (cooperative launch); phases are separated by grid-wide
+// barriers (cooperative_groups grid sync).
+// Reads of labels that other blocks wrote go through L2 (__ldcg).
+//   * Step 1 runs per tile of kTileR x kTileB batch points: the old labels
+//     the tile's edges reach are staged in shared memory, pulls and pushes
+//     are combined there with shared-memory atomics, and each lowered cell
+//     goes out with one global atomicMin (relax_tile).  Edge words load
+//     kPrefetch items at a time.
+//   * A scan gives one warp a whole row or column, consecutive lines on
+//     different SMs: each lane holds up to kCells consecutive cells in
+//     registers (all loaded at once), scans them, and the warp combines the
+//     lanes' results with shuffles, so no thread walks a whole line; a line
+//     longer than 32 x kCells is taken in pieces with a carry.
+//   * The change flag is a global word per round parity, set by one
+//     atomicOr per block and cleared a round ahead.
 //
-// What bounds it on the card: one block holds the (R, H+B) labels in
-// dynamic shared memory (111,616 bytes at R = 64, B = 416), so it runs on
-// 1 of 132 SMs; each round re-reads the 4.5 MB of bits from L2.  Every
-// label write is a shared-memory atomicMin, so labels only ever decrease and
-// no update is lost; pull-left and push-right along one forward edge are the
-// same atomicMin, which makes the reverse masks of the TPU kernel
-// unnecessary.  The scans run one thread per row or column, sequentially, in
-// this first version.
+// What bounds it on the card: the bytes are K1's bits (4.5 MB, read once
+// from HBM, then the words of the offsets in use from L2 each round) and the
+// labels, 1.4 us at the HBM rate; the work is one relaxation per set bit per
+// round and two scans.  At the main path's windows the time is latency: per
+// round 2-3 grid barriers and 4-6 dependent memory round trips (staging,
+// edge words, each scan pass) on a sparse window; on a dense one (7.5 M set
+// bits) step 1's per-bit work.
 
+#include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ void lower(int* L, int i, int v, int& changed) {
-  if (atomicMin(&L[i], v) > v) changed = 1;
+constexpr int kThreads = 512;
+constexpr int kCells = 16;   // cells per lane in a scan
+constexpr int kTileR = 32;   // batch rows and columns of a step-1 tile
+constexpr int kTileB = 8;
+constexpr int kPrefetch = 4;  // step-1 items whose edge words load together
+constexpr unsigned kFull = 0xffffffffu;
+
+// staged cells of one step-1 tile (one copy)
+__host__ __device__ inline int tile_cells(int H, int V) {
+  return (kTileR + 2 * V) * (kTileB + H);
 }
 
-__global__ void __launch_bounds__(1024)
-window_cc_kernel(const int* __restrict__ bits, const int* __restrict__ labels_in,
-                 const int* __restrict__ max_wp, int* __restrict__ labels_out,
-                 int* __restrict__ flags, int R, int B, int H, int V, int max_rounds) {
-  extern __shared__ int L[];
-  volatile int* Lv = L;
-  const int WCOL = H + B;
-  const int n = R * WCOL;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const size_t plane = static_cast<size_t>(R) * B;
-  for (int i = tid; i < n; i += nt) L[i] = labels_in[i];
-  const int upper = min(max(max_wp[0], 0), H) + 1;
-  // scan links: bit V of the dc = 1 plane, bit V - 1 of the dc = 0 plane
-  const int* hplane = H >= 1 ? bits + (2 * 1 + V / 32) * plane : nullptr;
-  const int hshift = V % 32;
-  const int* vplane = V >= 1 ? bits + ((V - 1) / 32) * plane : nullptr;
-  const int vshift = (V - 1) % 32;
+struct Window {
+  const int* bits;
+  int R, B, H, V, WCOL;
+  size_t plane;  // R * B
+};
+
+// The link of cell i of a line to cell i - 1 (1 <= i < n) is bit `shift`
+// of words[(i + offset) * step]: a row's cells are columns H - 1 + i, its
+// links bit V of word V / 32 of bits[1] at batch column i - 1; a column's
+// cells are rows i, its links bit V - 1 of word (V - 1) / 32 of bits[0] at
+// row i.
+struct Links {
+  const int* words;
+  int offset, step, shift;
+};
+
+__device__ __forceinline__ bool bit(unsigned m, int j) { return (m >> j) & 1u; }
+
+// One pass of a segmented min-scan over a line of n cells at y[i * stride],
+// forward (kFwd) or backward, in place, called by a whole warp.  Lane l holds
+// cells [l K, l K + K) of a piece of 32 K cells in v[0, K), K = kC, or less
+// in a line shorter than one piece; the other slots, and cells past the
+// line's end, are transparent (INT_MAX, begin no run).
+// Every load of a piece is issued before any of them is used (clamped
+// addresses, no branches), so a piece costs one memory round trip.  With
+// kCmp the result is compared with x (changed -> local = 1) and copied there.
+template <bool kFwd, bool kCmp, int kC>
+__device__ void line_pass(int* y, int* x, int stride, int n, const Links& lk, int& local) {
+  const int lane = threadIdx.x & 31;
+  const int K = min(kC, (n + 31) / 32);
+  const int piece = 32 * K;
+  const int n_pieces = (n + piece - 1) / piece;
+  int carry = INT_MAX;
+  for (int pp = 0; pp < n_pieces; ++pp) {
+    const int p0 = (kFwd ? pp : n_pieces - 1 - pp) * piece + lane * K;
+    int v[kC], xo[kC], lw[kC];
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int i = min(p0 + j, n - 1);
+      // the link that begins or continues cell i's run in this direction
+      const int li = kFwd ? max(i, 1) : min(i + 1, n - 1);
+      v[j] = __ldcg(y + i * stride);
+      if (kCmp) xo[j] = __ldcg(x + i * stride);
+      lw[j] = __ldg(lk.words + (li + lk.offset) * lk.step);
+    }
+    unsigned start = 0;  // bit j: cell j begins a run in the direction of travel
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int i = p0 + j;
+      const bool valid = j < K && i < n;
+      const bool linked = (lw[j] >> lk.shift) & 1;
+      const bool s = kFwd ? (i == 0 || !linked) : (i == n - 1 || !linked);
+      if (!valid) v[j] = INT_MAX;
+      start |= static_cast<unsigned>(valid && s) << j;
+    }
+    // within the lane
+    if (kFwd) {
+#pragma unroll
+      for (int j = 1; j < kC; ++j)
+        if (!bit(start, j)) v[j] = min(v[j], v[j - 1]);
+    } else {
+#pragma unroll
+      for (int j = kC - 2; j >= 0; --j)
+        if (!bit(start, j)) v[j] = min(v[j], v[j + 1]);
+    }
+    // across lanes: each lane's aggregate (the value flowing out of it, and
+    // whether a run begins in it), scanned in the direction of travel
+    int av = kFwd ? v[kC - 1] : v[0];
+    int af = start != 0u;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int ov = kFwd ? __shfl_up_sync(kFull, av, off) : __shfl_down_sync(kFull, av, off);
+      const int of = kFwd ? __shfl_up_sync(kFull, af, off) : __shfl_down_sync(kFull, af, off);
+      if (kFwd ? lane >= off : lane + off < 32) {
+        if (!af) av = min(av, ov);
+        af |= of;
+      }
+    }
+    // what flows into this lane: the carry of the pieces before, then the
+    // lanes before it
+    int iv = kFwd ? __shfl_up_sync(kFull, av, 1) : __shfl_down_sync(kFull, av, 1);
+    const int ifl = kFwd ? __shfl_up_sync(kFull, af, 1) : __shfl_down_sync(kFull, af, 1);
+    if (lane == (kFwd ? 0 : 31)) iv = carry;
+    else if (!ifl) iv = min(iv, carry);
+    // cells before the lane's first run start continue the inflowing run
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const unsigned before = kFwd ? (start & ((2u << j) - 1u)) : (start >> j);
+      if (before == 0u) v[j] = min(v[j], iv);
+    }
+    // a piece before the last is full: its last cell is lane 31's slot
+    // kC - 1 (K == kC), its first lane 0's slot 0
+    carry = kFwd ? __shfl_sync(kFull, v[kC - 1], 31) : __shfl_sync(kFull, v[0], 0);
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int i = p0 + j;
+      if (j < K && i < n) {
+        y[i * stride] = v[j];
+        if (kCmp && xo[j] != v[j]) {
+          x[i * stride] = v[j];
+          local = 1;
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// Every cell of the line takes the minimum over its run of linked cells: a
+// segmented min-scan forward, then one backward over the forward results,
+// which gives the run's minimum.
+template <int kC>
+__device__ void line_min_k(int* y, int* x, int stride, int n, const Links& lk, bool compare,
+                           int& local) {
+  line_pass<true, false, kC>(y, x, stride, n, lk, local);
+  if (compare) line_pass<false, true, kC>(y, x, stride, n, lk, local);
+  else line_pass<false, false, kC>(y, x, stride, n, lk, local);
+}
+
+// the slots per lane fit the line: a 64-row column takes 2, a row of
+// B + 1 = 417 cells 16 (longer lines go in pieces of 32 x kCells)
+__device__ void line_min(int* y, int* x, int stride, int n, const Links& lk, bool compare,
+                         int& local) {
+  if (n <= 64) line_min_k<2>(y, x, stride, n, lk, compare, local);
+  else if (n <= 128) line_min_k<4>(y, x, stride, n, lk, compare, local);
+  else if (n <= 256) line_min_k<8>(y, x, stride, n, lk, compare, local);
+  else line_min_k<kCells>(y, x, stride, n, lk, compare, local);
+}
+
+// compare cells [0, ncols) of every row with old, and copy them there
+__device__ void compare_left(int* y, int* x, const Window& w, int ncols, int gtid, int gsize,
+                             int& local) {
+  for (int idx = gtid; idx < w.R * ncols; idx += gsize) {
+    const int r = idx / ncols;
+    const int i = r * w.WCOL + (idx - r * ncols);
+    const int v = __ldcg(y + i);
+    if (__ldcg(x + i) != v) {
+      x[i] = v;
+      local = 1;
+    }
+  }
+}
+
+// Step 1 for one tile of kTileR x kTileB batch points.  The old labels of
+// every cell the tile's edges reach (rows r0 - V .. r0 + kTileR + V - 1,
+// window columns b0 .. b0 + kTileB + H - 1) are staged in shared memory,
+// twice: `s_old` is read, `s_new` takes the tile's pulls and pushes with
+// shared-memory atomicMin.  Then every staged cell the tile lowered goes to
+// `labels` with one global atomicMin (no return value: a reduction that
+// does not stall).
+__device__ void relax_tile(const Window& w, int tile, int upper, const int* old, int* labels,
+                          int* s_old, int* s_new) {
+  const int tiles_b = (w.B + kTileB - 1) / kTileB;
+  const int r0 = (tile / tiles_b) * kTileR;
+  const int b0 = (tile - (tile / tiles_b) * tiles_b) * kTileB;
+  const int row_lo = max(r0 - w.V, 0);
+  const int rows = min(r0 + kTileR + w.V, w.R) - row_lo;
+  const int cols = min(b0 + kTileB + w.H, w.WCOL) - b0;
+  const int cells = rows * cols;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int sr = i / cols;
+    const int v = __ldcg(old + (row_lo + sr) * w.WCOL + b0 + i - sr * cols);
+    s_old[i] = v;
+    s_new[i] = v;
+  }
   __syncthreads();
+  const int n_dr = 2 * w.V + 1;
+  const unsigned keep0 = n_dr >= 32 ? kFull : (1u << n_dr) - 1u;
+  const unsigned keep1 = n_dr <= 32 ? 0u : (n_dr >= 64 ? kFull : (1u << (n_dr - 32)) - 1u);
+  const int items = upper * kTileR * kTileB;
+  // kPrefetch items per thread at a time: their edge words are loaded
+  // together, then walked
+  for (int base = threadIdx.x; base < items; base += kPrefetch * blockDim.x) {
+    unsigned w0[kPrefetch], w1[kPrefetch];
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u) {
+      const int item = min(base + u * static_cast<int>(blockDim.x), items - 1);
+      const int bl = item % kTileB;
+      const int rl = (item / kTileB) % kTileR;
+      const int dc = item / (kTileB * kTileR);
+      const size_t p = static_cast<size_t>(min(r0 + rl, w.R - 1)) * w.B + min(b0 + bl, w.B - 1);
+      w0[u] = static_cast<unsigned>(__ldg(w.bits + (2 * dc) * w.plane + p)) & keep0;
+      w1[u] = static_cast<unsigned>(__ldg(w.bits + (2 * dc + 1) * w.plane + p)) & keep1;
+    }
+#pragma unroll
+    for (int u = 0; u < kPrefetch; ++u) {
+      const int item = base + u * static_cast<int>(blockDim.x);
+      const int bl = item % kTileB;
+      const int rl = (item / kTileB) % kTileR;
+      const int dc = item / (kTileB * kTileR);
+      const int r = r0 + rl;
+      const int b = b0 + bl;
+      if (item >= items || r >= w.R || b >= w.B || (w0[u] | w1[u]) == 0u) continue;
+      const int sp = (r - row_lo) * cols + w.H + bl;  // the point; its neighbours
+      const int sq = w.H + bl - dc - row_lo * cols;   // sit at sq + rr * cols
+      const int a = s_old[sp];
+      int m = a;
+      for (int word = 0; word < 2; ++word) {
+        unsigned bw = word == 0 ? w0[u] : w1[u];
+        while (bw) {
+          const int rr = r + __ffs(bw) - 1 + 32 * word - w.V;
+          bw &= bw - 1;
+          if (rr < 0 || rr >= w.R) continue;
+          const int c = s_old[sq + rr * cols];
+          m = min(m, c);
+          if (a < c) atomicMin(s_new + sq + rr * cols, a);
+        }
+      }
+      if (m < a) atomicMin(s_new + sp, m);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const int v = s_new[i];
+    if (v < s_old[i]) {
+      const int sr = i / cols;
+      atomicMin(labels + (row_lo + sr) * w.WCOL + b0 + i - sr * cols, v);
+    }
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads)
+window_cc_kernel(const int* __restrict__ bits, const int* __restrict__ labels_in,
+                 const int* __restrict__ max_wp, int* labels, int* old, int* flags, int R, int B,
+                 int H, int V, int max_rounds) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int smem[];
+  const Window w{bits, R, B, H, V, H + B, static_cast<size_t>(R) * B};
+  int* s_old = smem;
+  int* s_new = smem + tile_cells(H, V);
+  const int n_tiles = ((R + kTileR - 1) / kTileR) * ((B + kTileB - 1) / kTileB);
+  const int n = R * w.WCOL;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int gsize = gridDim.x * blockDim.x;
+  // line index of this warp: consecutive lines go to different SMs
+  const int gwarp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+  const int nwarps = gsize >> 5;
+  int* chg = flags + 2;  // change flags of even and odd rounds
+  for (int i = gtid; i < n; i += gsize) {
+    const int v = labels_in[i];
+    labels[i] = v;
+    old[i] = v;
+  }
+  if (gtid == 0) chg[0] = 0;
+  const int upper = min(max(max_wp[0], 0), H) + 1;
+  const bool has_h = H >= 1, has_v = V >= 1;
+  grid.sync();
 
   int it = 0;
-  int changed = 1;
+  bool changed = true;
   while (changed && it < max_rounds) {
+    // 1. relax every forward edge, Jacobi: read old, lower labels
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+      relax_tile(w, tile, upper, old, labels, s_old, s_new);
+    grid.sync();
+    if (gtid == 0) chg[(it + 1) & 1] = 0;  // read last a round ago
+    const bool col_phase = has_v && it >= 1;
     int local = 0;
-    for (int p = tid; p < R * B; p += nt) {
-      const int r = p / B;
-      const int b = p - r * B;
-      const int lp = r * WCOL + H + b;
-      for (int dc = 0; dc < upper; ++dc) {
-        unsigned w[2] = {static_cast<unsigned>(bits[(2 * dc) * plane + p]),
-                         static_cast<unsigned>(bits[(2 * dc + 1) * plane + p])};
-        for (int word = 0; word < 2; ++word) {
-          while (w[word]) {
-            const int k = __ffs(w[word]) - 1 + 32 * word;
-            w[word] &= w[word] - 1;
-            const int lq = (r + k - V) * WCOL + H + b - dc;
-            const int a = Lv[lp];
-            const int c = Lv[lq];
-            if (c < a) lower(L, lp, c, local);
-            else if (a < c) lower(L, lq, a, local);
-          }
-        }
+    // 2. rows; they end the round when no column scan follows
+    if (has_h) {
+      for (int row = gwarp; row < R; row += nwarps) {
+        const Links hl{bits + (2 + V / 32) * w.plane + row * B, -1, 1, V % 32};
+        const int base = row * w.WCOL + H - 1;
+        line_min(labels + base, old + base, 1, B + 1, hl, !col_phase, local);
       }
     }
-    __syncthreads();
-    if (hplane != nullptr) {
-      for (int r = tid; r < R; r += nt) {
-        int* row = L + r * WCOL;
-        const int* link = hplane + r * B;  // link[b]: columns H+b-1 and H+b
-        for (int c = H; c < WCOL; ++c) {
-          if ((link[c - H] >> hshift) & 1) {
-            if (row[c - 1] < row[c]) { row[c] = row[c - 1]; local = 1; }
-          }
-        }
-        for (int c = WCOL - 2; c >= H - 1 && c >= 0; --c) {
-          if ((link[c + 1 - H] >> hshift) & 1) {
-            if (row[c + 1] < row[c]) { row[c] = row[c + 1]; local = 1; }
-          }
-        }
+    if (!col_phase) compare_left(labels, old, w, has_h ? H - 1 : w.WCOL, gtid, gsize, local);
+    // 3. columns
+    if (col_phase) {
+      grid.sync();
+      for (int b = gwarp; b < B; b += nwarps) {
+        const Links cl{bits + ((V - 1) / 32) * w.plane + b, 0, B, (V - 1) % 32};
+        line_min(labels + H + b, old + H + b, w.WCOL, R, cl, true, local);
       }
+      compare_left(labels, old, w, H, gtid, gsize, local);
     }
-    __syncthreads();
-    if (vplane != nullptr && it >= 1) {
-      for (int c = H + tid; c < WCOL; c += nt) {
-        const int b = c - H;
-        // link of rows r-1 and r (row 0 never links upward)
-        for (int r = 1; r < R; ++r) {
-          if ((vplane[r * B + b] >> vshift) & 1) {
-            const int up = L[(r - 1) * WCOL + c];
-            if (up < L[r * WCOL + c]) { L[r * WCOL + c] = up; local = 1; }
-          }
-        }
-        for (int r = R - 2; r >= 0; --r) {
-          if ((vplane[(r + 1) * B + b] >> vshift) & 1) {
-            const int dn = L[(r + 1) * WCOL + c];
-            if (dn < L[r * WCOL + c]) { L[r * WCOL + c] = dn; local = 1; }
-          }
-        }
-      }
-    }
-    changed = __syncthreads_or(local);
+    // 4. the change flag
+    if (__syncthreads_or(local) && threadIdx.x == 0) atomicOr(chg + (it & 1), 1);
+    grid.sync();
+    changed = *reinterpret_cast<volatile int*>(chg + (it & 1)) != 0;
     ++it;
   }
-  for (int i = tid; i < n; i += nt) labels_out[i] = L[i];
-  if (tid == 0) {
+  if (gtid == 0) {
     flags[0] = changed ? 0 : 1;
     flags[1] = it;
   }
@@ -127,13 +361,39 @@ window_cc_kernel(const int* __restrict__ bits, const int* __restrict__ labels_in
 }  // namespace
 
 extern "C" int cct_window_cc(const int* bits, const int* labels_in, const int* max_wp,
-                             int* labels_out, int* flags, int R, int B, int H, int V,
-                             int max_rounds, int threads, void* stream) {
-  const int smem = R * (H + B) * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      window_cc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                             int* labels, int* old, int* flags, int R, int B, int H, int V,
+                             int max_rounds, void* stream) {
+  // per device: the grid, and the shared memory the kernel may use
+  static int blocks[64] = {0};
+  static int smem_set[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_cc_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      bits, labels_in, max_wp, labels_out, flags, R, B, H, V, max_rounds);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  const int smem = 2 * tile_cells(H, V) * static_cast<int>(sizeof(int));
+  if (smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(window_cc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = smem;
+    blocks[dev] = 0;  // the occupancy check below depends on it
+  }
+  if (blocks[dev] == 0) {
+    int sms = 0, per_sm = 0, coop = 0;
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!coop) return static_cast<int>(cudaErrorNotSupported);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_cc_kernel, kThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    blocks[dev] = sms;  // one block per SM, all co-resident
+  }
+  void* args[] = {&bits, &labels_in, &max_wp, &labels, &old, &flags, &R, &B, &H, &V,
+                  &max_rounds};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(window_cc_kernel), blocks[dev],
+                                    kThreads, args, smem, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,18 @@
 """The two hand-written Hopper kernels of association, their wrappers, their
-plain PyTorch twins and their launch counters.
+plain PyTorch twins and their launch counters, and the build of every
+kernel source of the port (``csrc/*.cu``).
 
 * K1 ``edge_bits`` (``csrc/edge_bits.cu``) replaces ``edge_bits_pallas``
   (``continuous_clustering_tpu/ops/cc_pallas.py``): wedge neighbour search
   -> forward edge bitmasks (H+1, 2, R, B) i32, bit ``dr + V`` of the two
   words marks an edge from batch point (r, b) to window cell
-  (r + dr, H + b - dc).
+  (r + dr, H + b - dc).  One thread per (batch point, column offset), the
+  window tile staged in shared memory.
 * K2 ``window_cc`` (``csrc/window_cc.cu``) replaces ``window_cc_pallas`` +
-  ``sweep_pallas``: the whole min-label fixpoint in one launch.
+  ``sweep_pallas``: the whole min-label fixpoint in one cooperative launch
+  over every SM, the twin's Jacobi rounds exactly (labels, converged and
+  the round count), the labels in global memory (no size limit but the
+  card's memory).
 
 The wrapper rule: a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain twin.  The twins are the JAX package's XLA formulations
@@ -37,9 +42,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 # the fixpoint's round cap (a hit with labels still changing is cc_failed)
 MAX_ROUNDS = 64
-# Hopper's per-block opt-in dynamic shared memory (232,448 bytes)
-MAX_SMEM_BYTES = 227 * 1024
-K2_THREADS = 1024
 
 LAUNCHES = {"edge_bits": 0, "window_cc": 0}
 _KLIB: Optional[ctypes.CDLL] = None
@@ -89,12 +91,14 @@ def load_kernels() -> ctypes.CDLL:
         lib.cct_edge_bits.restype = ctypes.c_int
         lib.cct_edge_bits.argtypes = [p] * 8 + [i, i, i, i, f, p]
         lib.cct_window_cc.restype = ctypes.c_int
-        lib.cct_window_cc.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.cct_window_cc.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.cct_sweep_probe.restype = ctypes.c_int
+        lib.cct_sweep_probe.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
         _KLIB = lib
     return _KLIB
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -105,7 +109,7 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> Non
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, what: str) -> None:
+def raise_on_error(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
@@ -132,20 +136,19 @@ def edge_bits(xw, yw, zw, incw, active_w, mad, wp, *, H: int, V: int,
         raise ValueError("edge_bits packs 2V+1 row offsets into two words: V <= 31")
     dev = xw.device
     for name, t in (("xw", xw), ("yw", yw), ("zw", zw), ("incw", incw)):
-        _check(t, name, torch.float32, (R, WCOL), dev)
-    _check(active_w, "active_w", torch.bool, (R, WCOL), dev)
-    _check(mad, "mad", torch.float32, (R, B), dev)
-    _check(wp, "wp", torch.int32, (R, B), dev)
-    act = active_w.to(torch.int32)
+        check_tensor(t, name, torch.float32, (R, WCOL), dev)
+    check_tensor(active_w, "active_w", torch.bool, (R, WCOL), dev)
+    check_tensor(mad, "mad", torch.float32, (R, B), dev)
+    check_tensor(wp, "wp", torch.int32, (R, B), dev)
     bits = torch.empty((H + 1, 2, R, B), dtype=torch.int32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cct_edge_bits(
             xw.data_ptr(), yw.data_ptr(), zw.data_ptr(), incw.data_ptr(),
-            act.data_ptr(), mad.data_ptr(), wp.data_ptr(), bits.data_ptr(),
+            active_w.data_ptr(), mad.data_ptr(), wp.data_ptr(), bits.data_ptr(),
             R, B, H, V, max_d2, stream)
-    _raise_on(err, "edge_bits")
+    raise_on_error(err, "edge_bits")
     LAUNCHES["edge_bits"] += 1
     return bits
 
@@ -216,26 +219,25 @@ def window_cc(bits, L0, max_wp, *, H: int, V: int
         raise ValueError(f"window_cc: unsupported device {L0.device}")
     R, WCOL = L0.shape
     B = WCOL - H
-    smem = R * WCOL * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"window_cc keeps the ({R}, {WCOL}) labels in one block's shared "
-            f"memory: {smem} bytes > {MAX_SMEM_BYTES}")
     dev = L0.device
-    _check(bits, "bits", torch.int32, (H + 1, 2, R, B), dev)
-    _check(L0, "L0", torch.int32, (R, WCOL), dev)
-    _check(max_wp, "max_wp", torch.int32, (1,), dev)
-    labels = torch.empty((R, WCOL), dtype=torch.int32, device=dev)
-    flags = torch.empty((2,), dtype=torch.int32, device=dev)
+    check_tensor(bits, "bits", torch.int32, (H + 1, 2, R, B), dev)
+    check_tensor(L0, "L0", torch.int32, (R, WCOL), dev)
+    check_tensor(max_wp, "max_wp", torch.int32, (1,), dev)
+    # one allocation: the labels, the previous round's labels, and the flags
+    # (converged, rounds, the kernel's two change words); converged is read
+    # as a bool view of its word's first byte, so no further kernel runs
+    n = R * WCOL
+    buf = torch.empty((2 * n + 4,), dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cct_window_cc(bits.data_ptr(), L0.data_ptr(), max_wp.data_ptr(),
-                                labels.data_ptr(), flags.data_ptr(),
-                                R, B, H, V, MAX_ROUNDS, K2_THREADS, stream)
-    _raise_on(err, "window_cc")
+                                ptr, ptr + 4 * n, ptr + 8 * n, R, B, H, V, MAX_ROUNDS, stream)
+    raise_on_error(err, "window_cc")
     LAUNCHES["window_cc"] += 1
-    return labels, flags[0] != 0, flags[1]
+    flags = buf[2 * n:]
+    return buf[:n].view(R, WCOL), flags[:1].view(torch.bool)[0], flags[1]
 
 
 def _seg_min_scan(L: torch.Tensor, start: torch.Tensor, dim: int) -> torch.Tensor:

@@ -3,10 +3,24 @@
 
 The two ``lax.scan`` passes over rows become Python loops over the R rows,
 vectorized across the B columns of the batch; the cross-column forward fill
-of the inclination diffs is a ``cummax`` of valid positions.  Exact: every
-step is the same f32 elementwise arithmetic as the JAX version.  On the card
+of the inclination diffs is a ``cummax`` of valid positions.  On the card
 the row loops cost a few thousand small launches per step; a fused kernel is
 a later change.
+
+Exact against the JAX package's CPU build, on the CPU and on the card: XLA's
+CPU compiler fuses two f32 multiply-adds that feed comparisons, and the
+port evaluates exactly those as fused multiply-adds (``fma32``):
+
+* the xy distance ``d`` (slope tests, backtrack threshold) is
+  ``sqrt(fma(xr, xr, yr * yr))``, the ``sqrt`` in f64 rounded once (torch's
+  f32 ``sqrt`` on the CPU is not correctly rounded);
+* the ego-frame point ``pe`` (ego-vehicle box) is
+  ``fma(r2, z, fma(r0, x, r1 * y)) + t`` per row of the rotation.
+
+Every other f32 expression here (the inclination diffs and their fill, the
+slopes, the height and distance differences, the supplied inclination, the
+NaN-cell azimuth ``(g + 0.5) * w``) is one rounded operation per step, which
+XLA does not fuse, and equals the JAX CPU build as it is written.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ from ..constants import (
     GP_FOG, GP_GROUND, GP_OBSTACLE, GP_UNKNOWN,
 )
 
+from .insertion import f64_round, fma32
 from .state import RingState, ring_put, ring_read
 
 
@@ -45,6 +60,22 @@ def _ffill_columns(values: torch.Tensor, valid: torch.Tensor, carry: torch.Tenso
     last = torch.cummax(torch.where(m, pos, -1), dim=1).values
     filled = torch.where(last >= 0, v.gather(1, last.clamp_min(0)), float("nan"))
     return filled[:, 1:], filled[:, -1]
+
+
+def xy_distance(xs: torch.Tensor, ys: torch.Tensor, sensor_pos: torch.Tensor) -> torch.Tensor:
+    """(R, B) distance in the azimuth plane from the sensor at ``sensor_pos``
+    (B, 3), as XLA's CPU build evaluates ``sqrt(xr * xr + yr * yr)``."""
+    xr, yr = xs - sensor_pos[:, 0][None, :], ys - sensor_pos[:, 1][None, :]
+    return f64_round(torch.sqrt, fma32(xr, xr, yr * yr))
+
+
+def ego_frame(xs, ys, zs, ego_rot: torch.Tensor, ego_trans: torch.Tensor):
+    """The three (R, B) coordinates of the points in the ego frame, rotation
+    ``ego_rot`` (B, 3, 3) and translation ``ego_trans`` (B, 3) per column,
+    as XLA's CPU build evaluates ``r0 * x + r1 * y + r2 * z + t``."""
+    return [fma32(ego_rot[:, i, 2][None, :], zs,
+                  fma32(ego_rot[:, i, 0][None, :], xs, ego_rot[:, i, 1][None, :] * ys))
+            + ego_trans[:, i][None, :] for i in range(3)]
 
 
 def _select(default: int, shape, device, *cases) -> torch.Tensor:
@@ -92,9 +123,8 @@ def ground_segment_columns(
 
     cell_nan = torch.isnan(dist)
     sp = inputs.sensor_pos
-    xr, yr = xs - sp[:, 0][None, :], ys - sp[:, 1][None, :]
     zrel = zs - sp[:, 2][None, :]
-    d = torch.sqrt(xr * xr + yr * yr)
+    d = xy_distance(xs, ys, sp)
 
     fog = torch.zeros_like(cell_nan)
     if g.fog_filtering_enabled:
@@ -102,9 +132,7 @@ def ground_segment_columns(
                & (dist < g.fog_filtering_distance_below)
                & (inc_raw > g.fog_filtering_inclination_above))
 
-    er, et = inputs.ego_rot, inputs.ego_trans
-    pe = [er[:, i, 0][None, :] * xs + er[:, i, 1][None, :] * ys
-          + er[:, i, 2][None, :] * zs + et[:, i][None, :] for i in range(3)]
+    pe = ego_frame(xs, ys, zs, inputs.ego_rot, inputs.ego_trans)
     ego = (~cell_nan & ~fog
            & (pe[0] < g.length_ref_to_front_end) & (pe[0] > g.length_ref_to_rear_end)
            & (pe[1] < g.width_ref_to_left_mirror) & (pe[1] > g.width_ref_to_right_mirror)

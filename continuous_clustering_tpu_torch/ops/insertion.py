@@ -79,7 +79,7 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
 
 
-def _f64_round(fn, *args: torch.Tensor) -> torch.Tensor:
+def f64_round(fn, *args: torch.Tensor) -> torch.Tensor:
     """``fn`` of f32 tensors evaluated in f64 and rounded once to f32."""
     return fn(*[a.to(torch.float64) for a in args]).to(torch.float32)
 
@@ -108,7 +108,7 @@ def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> Inse
               + pose[:, i, 3:4] for i in range(3)]
     p_rel = [p_odom[i] - sensor_pos[:, i:i + 1] for i in range(3)]
     point_ok = ~torch.isnan(px) & batch.valid[:, None]
-    azimuth = _f64_round(torch.atan2, py, px)        # sensor frame (…cpp:142)
+    azimuth = f64_round(torch.atan2, py, px)        # sensor frame (…cpp:142)
     if config.range_image.sensor_is_clockwise:
         inc_az = -azimuth + pi32
     else:
@@ -116,10 +116,10 @@ def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> Inse
     col_pre = (inc_az / az_width).to(torch.int32)
     # f64 sqrt rounded once: torch's f32 sqrt on the CPU is not correctly
     # rounded (about 1 input in 10,000 lands 1 ulp low), the card's is
-    dist_all = _f64_round(torch.sqrt, fma32(p_rel[2], p_rel[2],
+    dist_all = f64_round(torch.sqrt, fma32(p_rel[2], p_rel[2],
                                             fma32(p_rel[1], p_rel[1], p_rel[0] * p_rel[0])))
     dist_all = torch.where(point_ok, dist_all, float("nan"))
-    inclination = _f64_round(torch.asin, p_rel[2] / dist_all)
+    inclination = f64_round(torch.asin, p_rel[2] / dist_all)
 
     # ---- the sequential firing loop ------------------------------------------
     prev_rearmost, prev_foremost = state.prev_rearmost, state.prev_foremost

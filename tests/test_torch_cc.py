@@ -28,6 +28,7 @@ from continuous_clustering_tpu.ops.cc_pallas import edge_bits_pallas, window_cc_
 from continuous_clustering_tpu_torch.convert import config_from_dataclass, state_from_numpy
 from continuous_clustering_tpu_torch.ops import cc_cuda
 from continuous_clustering_tpu_torch.ops.association import window_arrays
+from continuous_clustering_tpu_torch.tools import cc_windows
 
 from .test_torch_step import (jax_pre_association, jax_state_numpy,  # noqa: F401
                               one_torch_thread, scene_frames, serpentine_frames,
@@ -131,3 +132,27 @@ def test_wrappers_route_cpu_tensors_to_the_twins(window):
         cc_cuda.edge_bits(*[a.to("meta") for a in args], **_kw(cfg))
     with pytest.raises(ValueError, match="unsupported device"):
         cc_cuda.window_cc(bits.to("meta"), win.L0.to("meta"), max_wp.to("meta"), **kw)
+
+
+@pytest.mark.parametrize("case", ["random-0", "random-1", "dense-2", "snake"])
+def test_plain_window_cc_matches_vectorized_on_synthetic_windows(case):
+    """Dense random edge words (out-of-window and out-of-range bits
+    included) and a snake that runs into the 64-round cap: labels,
+    converged and rounds equal the JAX package's ``_window_cc_vectorized``."""
+    cfg = small_cfg()
+    H, V = cfg.clustering.max_steps_in_row, cfg.clustering.max_steps_in_column
+    R, Bw = 32, 48
+    if case == "snake":
+        Bw = 96
+        bits, L0, max_wp = cc_windows.snake_window(R, Bw, H, V)
+    else:
+        kind, seed = case.split("-")
+        bits, L0, max_wp = cc_windows.random_window(
+            R, Bw, H, V, density=0.01 if kind == "dense" else 0.002, seed=int(seed))
+    L, ok, rounds = cc_cuda.window_cc_reference(bits, L0, max_wp, H=H, V=V)
+    jl, jok, jrounds = jassoc._window_cc_vectorized(
+        cfg, jnp.asarray(bits.numpy()), jnp.ones(L0.shape, bool), jnp.asarray(L0.numpy()), Bw,
+        jnp.asarray(int(max_wp)))
+    np.testing.assert_array_equal(L.numpy(), np.asarray(jl))
+    assert bool(ok) == bool(jok) == (case != "snake")
+    assert int(rounds) == int(jrounds) >= (cc_cuda.MAX_ROUNDS if case == "snake" else 2)

@@ -6,9 +6,13 @@ and the CUDA toolkit:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-(``--noconftest``: the suite's conftest configures JAX).  The window is a
-real association window of the synthetic stream at 32 x 220, batch 48.
-Tolerance: bits, labels and the converged flag exact.
+(``--noconftest``: the suite's conftest configures JAX).  The windows are
+real association windows of two synthetic streams at 32 x 220, batch 48
+(a KITTI-like scene and the throughput runs' ``near_field`` scene), and
+the synthetic windows of ``tools/cc_windows.py``: dense random edge words,
+one at R = 128, B = 512, and a snake that runs into the round cap.  The
+probe variants run on their own inputs.  Tolerance: bits, labels, the
+converged flag, the round count and the probe outputs exact.
 """
 
 from __future__ import annotations
@@ -26,22 +30,23 @@ from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firin
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture(scope="module")
-def window():
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
+
+
+def _stream_window(firings):
+    """The association window after ``firings`` on the card."""
     from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
     from continuous_clustering_tpu_torch.ops.association import window_arrays
 
     cfg = kitti_config()
     cfg = cfg.replace(range_image=dataclasses.replace(
         cfg.range_image, num_columns=220, ring_buffer_revolutions=4))
-    scene = make_scene(num_boxes=12, seed=3, spread=15.0)
-    xyz, _ = raycast_frame(scene, num_rows=32, num_columns=220, seed=3)
     pipe = ContinuousClustering(cfg, firing_batch_size=48, device="cuda")
     pipe.reset(32)
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
-    for f in frame_to_firings(xyz)[:180]:
+    for f in firings:
         pipe.add_firing(f, np.eye(4))
     B = 48 + 32
     win = window_arrays(cfg, pipe.state, pipe.state.first_unfinished - B,
@@ -49,10 +54,26 @@ def window():
     return cfg, win
 
 
-def test_edge_bits_kernel_matches_plain(window):
+@pytest.fixture(scope="module")
+def window():
+    _card()
+    scene = make_scene(num_boxes=12, seed=3, spread=15.0)
+    xyz, _ = raycast_frame(scene, num_rows=32, num_columns=220, seed=3)
+    return _stream_window(frame_to_firings(xyz)[:180])
+
+
+@pytest.fixture(scope="module")
+def near_field_window():
+    _card()
+    from continuous_clustering_tpu_torch.tools.bench_setup import make_bench_scene
+
+    firings, _ = make_bench_scene(32, 220, "near_field")
+    return _stream_window(firings[:180])
+
+
+def _edge_bits_check(cfg, win):
     from continuous_clustering_tpu_torch.ops import cc_cuda
 
-    cfg, win = window
     cl = cfg.clustering
     md = np.float32(cl.max_distance)
     args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
@@ -64,32 +85,72 @@ def test_edge_bits_kernel_matches_plain(window):
     torch.cuda.synchronize()
     assert int((ref != 0).sum()) > 0
     assert torch.equal(bits, ref)
+    return bits
+
+
+def _window_cc_check(bits, L0, max_wp, H, V, converged=True):
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+
+    before = cc_cuda.LAUNCHES["window_cc"]
+    L, ok, rounds = cc_cuda.window_cc(bits, L0, max_wp, H=H, V=V)
+    assert cc_cuda.LAUNCHES["window_cc"] == before + 1
+    L_ref, ok_ref, rounds_ref = cc_cuda.window_cc_reference(bits, L0, max_wp, H=H, V=V)
+    torch.cuda.synchronize()
+    assert torch.equal(L, L_ref)
+    assert bool(ok) == bool(ok_ref) == converged
+    assert int(rounds) == int(rounds_ref) >= 1
+
+
+def test_edge_bits_kernel_matches_plain(window):
+    _edge_bits_check(*window)
+
+
+def test_edge_bits_kernel_matches_plain_near_field(near_field_window):
+    _edge_bits_check(*near_field_window)
 
 
 def test_window_cc_kernel_matches_plain(window):
-    from continuous_clustering_tpu_torch.ops import cc_cuda
-
     cfg, win = window
     H, V = cfg.clustering.max_steps_in_row, cfg.clustering.max_steps_in_column
-    md = np.float32(cfg.clustering.max_distance)
-    bits = cc_cuda.edge_bits_reference(win.xw, win.yw, win.zw, win.incw, win.active_w,
-                                       win.mad, win.wp, H=H, V=V, max_d2=float(md * md))
+    bits = _edge_bits_check(cfg, win)
     max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
-    before = cc_cuda.LAUNCHES["window_cc"]
-    L, ok, rounds = cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V)
-    assert cc_cuda.LAUNCHES["window_cc"] == before + 1
-    L_ref, ok_ref, _ = cc_cuda.window_cc_reference(bits, win.L0, max_wp, H=H, V=V)
-    torch.cuda.synchronize()
-    assert torch.equal(L, L_ref)
-    assert bool(ok) and bool(ok_ref) and int(rounds) >= 1
+    _window_cc_check(bits, win.L0, max_wp, H, V)
 
 
-def test_window_cc_refuses_a_window_beyond_shared_memory(window):
-    from continuous_clustering_tpu_torch.ops import cc_cuda
+def test_window_cc_kernel_matches_plain_near_field(near_field_window):
+    cfg, win = near_field_window
+    H, V = cfg.clustering.max_steps_in_row, cfg.clustering.max_steps_in_column
+    bits = _edge_bits_check(cfg, win)
+    max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
+    _window_cc_check(bits, win.L0, max_wp, H, V)
 
-    # 128 x (20 + 512) labels = 272,384 bytes > 232,448 (128 x 436 still fits)
-    R, H, B = 128, 20, 512
-    bits = torch.zeros((H + 1, 2, R, B), dtype=torch.int32, device="cuda")
-    L0 = torch.zeros((R, H + B), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="shared"):
-        cc_cuda.window_cc(bits, L0, torch.zeros(1, dtype=torch.int32, device="cuda"), H=H, V=20)
+
+@pytest.mark.parametrize("case", ["random-0", "random-1", "dense-2", "wide-3", "snake"])
+def test_window_cc_kernel_matches_plain_on_synthetic_windows(case):
+    """Rounds equal too: the kernel runs the twin's Jacobi rounds.  ``wide``
+    is R = 128, B = 512, beyond one block's shared memory (the first K2
+    kept its labels there); ``snake`` stops at the round cap unconverged."""
+    _card()
+    from continuous_clustering_tpu_torch.tools import cc_windows
+
+    H = V = 20
+    if case == "snake":
+        bits, L0, max_wp = cc_windows.snake_window(64, 416, H, V)
+    else:
+        kind, seed = case.split("-")
+        R, B = (128, 512) if kind == "wide" else (64, 416)
+        bits, L0, max_wp = cc_windows.random_window(
+            R, B, H, V, density=0.01 if kind == "dense" else 0.002, seed=int(seed))
+    _window_cc_check(bits.cuda(), L0.cuda(), max_wp.cuda(), H, V, converged=case != "snake")
+
+
+@pytest.mark.parametrize("upper", [1, 7, 21])
+def test_sweep_probe_kernels_match_plain(upper):
+    _card()
+    from continuous_clustering_tpu_torch.ops import sweep_probe
+    from continuous_clustering_tpu_torch.tools.sweep_probe import run
+
+    before = sweep_probe.LAUNCHES["sweep_probe"]
+    results = run("cuda", seed=upper, uppers=(upper,))
+    assert results == [(name, "OK") for name in sweep_probe.VARIANTS]
+    assert sweep_probe.LAUNCHES["sweep_probe"] == before + len(sweep_probe.VARIANTS)
