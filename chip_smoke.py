@@ -37,7 +37,10 @@ Phases 3 to 8 drive the port's paths; the kernels' launch counters are set
 to 0 just before each and read just after, and each of phases 3-7 must have
 launched K1 and K2, phase 8 the probe kernel.  Every phase raises on
 failure.  The line before the last is a JSON object with one entry per
-kernel (launches summed over phases 3-8); the last line is ``{"ok": true,
+kernel (launches summed over phases 3-8; ``max_abs_err`` over every
+comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
+without; K1 and K2 on the KITTI window, the probe's slowest variant at
+upper = 21; ``bound_ms`` for the same inputs); the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.  Exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.  Imports nothing of JAX or of the JAX
@@ -263,9 +266,13 @@ def build_all():
     return times
 
 
+def max_abs_diff(a, b) -> int:
+    return int((a.long() - b.long()).abs().max())
+
+
 def check_window_cc(what, bits, L0, max_wp, H, V, converged):
     """K2 on the card against its twin: labels, converged flag and round
-    count exactly; returns the round count."""
+    count exactly; returns (the round count, max |label - twin's label|)."""
     import torch
 
     from continuous_clustering_tpu_torch.ops import cc_cuda
@@ -273,23 +280,34 @@ def check_window_cc(what, bits, L0, max_wp, H, V, converged):
     lab, ok, rounds = cc_cuda.window_cc(bits, L0, max_wp, H=H, V=V)
     lab_ref, ok_ref, rounds_ref = cc_cuda.window_cc_reference(bits, L0, max_wp, H=H, V=V)
     torch.cuda.synchronize()
+    err = max_abs_diff(lab, lab_ref)
     check(torch.equal(lab, lab_ref), f"{what}: K2 labels differ from the plain twin "
-          f"(max |diff| {int((lab.long() - lab_ref.long()).abs().max())})")
+          f"(max |diff| {err})")
     check(bool(ok) == bool(ok_ref) == converged,
           f"{what}: converged kernel {bool(ok)}, plain {bool(ok_ref)}, expected {converged}")
     check(int(rounds) == int(rounds_ref),
           f"{what}: rounds kernel {int(rounds)}, plain {int(rounds_ref)}")
-    return int(rounds)
+    return int(rounds), err
 
 
-def kernel_bounds(win, bits, rounds, H, V):
+def bound(nbytes: int, ops: int) -> dict:
+    """The larger of ``nbytes`` over the HBM rate and ``ops`` over the f32
+    rate, in ms, and which of the two it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, ops=ops)
+
+
+def kernel_bounds(win, bits, max_wp, rounds, H, V):
     """Least time the card could take for each kernel's work on this
-    window: the larger of bytes over the HBM rate and f32 operations over
-    the f32 rate.  Bytes: each input read once, each output written once.
+    window.  Bytes: each input the kernel reads once, each output written
+    once.  K1 reads the window and writes every plane of bits; K2 reads the
+    two words of bits for the column offsets it uses, dc < min(max_wp, H) +
+    1 (the scans' links, bits[1] and bits[0], among them), and the labels.
     Operations: K1's candidate pairs of this window (active batch points x
-    column offsets up to their wedge x 2V + 1 row offsets); K2's
-    per-round edge relaxations and scans of this run's rounds (integer min,
-    counted at the f32 rate)."""
+    column offsets up to their wedge x 2V + 1 row offsets); K2's per-round
+    edge relaxations and scans of this run's rounds (integer min, counted at
+    the f32 rate)."""
     R, WCOL = win.active_w.shape
     B = WCOL - H
     f32 = 4
@@ -299,26 +317,30 @@ def kernel_bounds(win, bits, rounds, H, V):
     pairs = int(((win.wp.clamp(max=H) + 1) * active_b).sum()) * (2 * V + 1)
     k1_ops = pairs * K1_OPS_PER_PAIR
     n_edges = int(np.unpackbits(bits.cpu().numpy().view(np.uint8)).sum())
-    k2_bytes = bits.numel() * f32 + 2 * R * WCOL * f32 + 4 + 8
+    planes = set(range(2 * (min(int(max_wp), H) + 1)))   # (dc, word) planes
+    if H >= 1:
+        planes.add(2 + V // 32)
+    if V >= 1:
+        planes.add((V - 1) // 32)
+    k2_bytes = len(planes) * R * B * f32 + 2 * R * WCOL * f32 + 4 + 8
     k2_ops = int(rounds) * (n_edges + 4 * R * WCOL)
-    out = {}
-    for name, nbytes, ops in (("edge_bits", k1_bytes, k1_ops), ("window_cc", k2_bytes, k2_ops)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        out[name] = dict(bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations",
-                         bytes=nbytes, ops=ops)
-    return out
+    return {"edge_bits": bound(k1_bytes, k1_ops), "window_cc": bound(k2_bytes, k2_ops)}
 
 
-def probe_bounds(bits, L, upper):
-    """Least time for one probe launch at ``upper``: its bytes (bits, and the
-    labels in and out) over the HBM rate, or the steps of its slowest
-    variant (3 per column offset) over every cell, at the f32 rate."""
-    nbytes = bits.numel() * 4 + 2 * L.numel() * 4
-    ops = 3 * upper * L.numel() * PROBE_OPS_PER_CELL_STEP
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes, ops=ops)
+def probe_bounds(name, L, upper):
+    """Least time for one launch of probe variant ``name`` at ``upper``.
+    Bytes: the labels in and out, and for V3, V3i and V4 word 0 of bits[dc]
+    for dc < upper (no variant reads word 1, the others no bits).
+    Operations: one step per cell for V0 and V1, ``upper`` for V2 and V5
+    (three bands each for V5), 3 x ``upper`` for V3, V3i and V4, three
+    compares for V6."""
+    from continuous_clustering_tpu_torch.ops.sweep_probe import B, R
+
+    reads_bits = name in ("V3_bool_mask", "V3i_i32_mask", "V4_mask_scratch")
+    steps = {"V0_init_copy": 1, "V1_static_slice_roll": 1, "V2_dynamic_roll": upper,
+             "V5_cmp_astype_prefix": 3 * upper, "V6_bitpack": 3}.get(name, 3 * upper)
+    nbytes = (upper * R * B * 4 if reads_bits else 0) + 2 * L.numel() * 4
+    return bound(nbytes, steps * L.numel() * PROBE_OPS_PER_CELL_STEP)
 
 
 def device_profile(fn):
@@ -395,6 +417,8 @@ def main() -> int:
     max_d2 = float(np.float32(cl.max_distance) * np.float32(cl.max_distance))
     k1_kw = dict(H=H, V=V, max_d2=max_d2)
     k2 = {}
+    # max |kernel - twin| over every comparison of each kernel in this run
+    max_err = {"edge_bits": 0, "window_cc": 0}
     for wname, win in windows.items():
         k1_args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
         bits = cc_cuda.edge_bits(*k1_args, **k1_kw)
@@ -402,10 +426,14 @@ def main() -> int:
         torch.cuda.synchronize()
         n_set = int(np.unpackbits(bits.cpu().numpy().view(np.uint8)).sum())
         check(n_set > 0, f"{wname}: the real window has no edges")
+        err = max_abs_diff(bits, bits_ref)
+        max_err["edge_bits"] = max(max_err["edge_bits"], err)
         check(torch.equal(bits, bits_ref), f"{wname}: K1 bits differ from the plain twin "
-              f"(max |diff| {int((bits.long() - bits_ref.long()).abs().max())})")
+              f"(max |diff| {err})")
         max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
-        rounds = check_window_cc(f"{wname} window", bits, win.L0, max_wp, H, V, converged=True)
+        rounds, err = check_window_cc(f"{wname} window", bits, win.L0, max_wp, H, V,
+                                      converged=True)
+        max_err["window_cc"] = max(max_err["window_cc"], err)
         t = dict(
             k1_ms=median_ms(lambda: cc_cuda.edge_bits(*k1_args, **k1_kw), device_only=True),
             k1_host_ms=median_ms(lambda: cc_cuda.edge_bits(*k1_args, **k1_kw)),
@@ -415,7 +443,7 @@ def main() -> int:
             k2_host_ms=median_ms(lambda: cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V)),
             k2_plain_ms=median_ms(
                 lambda: cc_cuda.window_cc_reference(bits, win.L0, max_wp, H=H, V=V), n=5),
-            bounds=kernel_bounds(win, bits, rounds, H, V))
+            bounds=kernel_bounds(win, bits, max_wp, rounds, H, V))
         k2[wname] = t
         print(f"phase 2: {card}: {wname} window R={win.active_w.shape[0]} "
               f"WCOL={win.active_w.shape[1]}, {int(win.active_w.sum())} active cells, "
@@ -431,7 +459,8 @@ def main() -> int:
                  "R=128 B=512": (cc_windows.random_window(128, 512, H, V, seed=3), True)}
     for sname, (sw, converged) in synthetic.items():
         sbits, sL0, swp = (a.to(dev) for a in sw)
-        rounds = check_window_cc(f"{sname} window", sbits, sL0, swp, H, V, converged)
+        rounds, err = check_window_cc(f"{sname} window", sbits, sL0, swp, H, V, converged)
+        max_err["window_cc"] = max(max_err["window_cc"], err)
         print(f"phase 2: {sname} window {tuple(sL0.shape)}: K2 labels, converged "
               f"({converged}) and rounds ({rounds}) equal the plain twin's")
 
@@ -658,43 +687,51 @@ def main() -> int:
     launches.start()
     results = probe_tool.run(dev)
     got = launches.stop("phase 8", kernels=("sweep_probe",))
-    failed = [f"{n}: {r}" for n, r in results if r != "OK"]
+    failed = [f"{n}: {r}" for n, r, _ in results if r != "OK"]
     check(not failed, f"probe variants differ from their twins: {failed}")
+    max_err["sweep_probe"] = max(e for _, _, e in results)
     n_launch = len(sweep_probe.VARIANTS) * len(probe_tool.UPPERS)
     check(got["sweep_probe"] == n_launch, f"probe launches {got} != {n_launch}")
     bits_np, L_np = probe_tool.probe_inputs(0)
     pbits, pL = torch.from_numpy(bits_np).to(dev), torch.from_numpy(L_np).to(dev)
     pupper = torch.tensor(H + 1, dtype=torch.int32, device=dev)
-    probe_ms = {}
+    probe_t = {}
     for vname in sweep_probe.VARIANTS:
-        probe_ms[vname] = (
-            median_ms(lambda: sweep_probe.sweep_probe(vname, pbits, pupper, pL),
-                      device_only=True),
-            median_ms(lambda: sweep_probe.sweep_probe_reference(vname, pbits, pupper, pL), n=5))
-    slowest = max(probe_ms, key=lambda v: probe_ms[v][0])
-    probe_bound = probe_bounds(pbits, pL, H + 1)
+        probe_t[vname] = dict(
+            device_ms=median_ms(lambda: sweep_probe.sweep_probe(vname, pbits, pupper, pL),
+                                device_only=True),
+            host_ms=median_ms(lambda: sweep_probe.sweep_probe(vname, pbits, pupper, pL)),
+            plain_ms=median_ms(
+                lambda: sweep_probe.sweep_probe_reference(vname, pbits, pupper, pL), n=5),
+            bounds=probe_bounds(vname, pL, H + 1))
+    slowest = max(probe_t, key=lambda v: probe_t[v]["device_ms"])
     print(f"phase 8: {card}: {len(results)} probe variants equal their twins at upper "
-          f"{list(probe_tool.UPPERS)}; launches {got}; at upper {H + 1}, ms device / plain: "
-          + ", ".join(f"{v} {k:.4f} / {p:.3f}" for v, (k, p) in probe_ms.items())
-          + f"; bound {probe_bound}")
+          f"{list(probe_tool.UPPERS)}; launches {got}; at upper {H + 1}, ms device / with "
+          "the host's enqueue / plain, bound ms (bytes): "
+          + ", ".join(f"{v} {t['device_ms']:.4f} / {t['host_ms']:.4f} / {t['plain_ms']:.3f}, "
+                      f"{t['bounds']['bound_ms']:.7f} ({t['bounds']['bytes']})"
+                      for v, t in probe_t.items()))
 
-    kit = k2["kitti"]
-    timing = {"edge_bits": (kit["k1_ms"], kit["k1_plain_ms"], kit["bounds"]["edge_bits"]),
-              "window_cc": (kit["k2_ms"], kit["k2_plain_ms"], kit["bounds"]["window_cc"]),
-              "sweep_probe": (*probe_ms[slowest], probe_bound)}
+    # ms: CUDA events around the launch as the host issues it, the host's
+    # enqueue included; device_ms: the device's time alone
+    kit, pt = k2["kitti"], probe_t[slowest]
+    timing = {"edge_bits": (kit["k1_host_ms"], kit["k1_ms"], kit["k1_plain_ms"],
+                            kit["bounds"]["edge_bits"]),
+              "window_cc": (kit["k2_host_ms"], kit["k2_ms"], kit["k2_plain_ms"],
+                            kit["bounds"]["window_cc"]),
+              "sweep_probe": (pt["host_ms"], pt["device_ms"], pt["plain_ms"], pt["bounds"])}
     sources = {"edge_bits": ("continuous_clustering_tpu_torch/csrc/edge_bits.cu",
                              "continuous_clustering_tpu/ops/cc_pallas.py:444"),
                "window_cc": ("continuous_clustering_tpu_torch/csrc/window_cc.cu",
                              "continuous_clustering_tpu/ops/cc_pallas.py:202"),
                "sweep_probe": ("continuous_clustering_tpu_torch/csrc/sweep_probe.cu",
                                "scripts/pallas_bisect.py:26")}
-    # every kernel equals its twin exactly (checked above): max_abs_err 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches.total[name],
-         "max_abs_err": 0, "ms": timing[name][0], "plain_ms": timing[name][1],
-         "bound_ms": timing[name][2]["bound_ms"], "bound_by": timing[name][2]["bound_by"],
-         "library_ms": None}
+         "max_abs_err": max_err[name], "ms": timing[name][0], "device_ms": timing[name][1],
+         "plain_ms": timing[name][2], "bound_ms": timing[name][3]["bound_ms"],
+         "bound_by": timing[name][3]["bound_by"], "library_ms": None}
         for name in ("edge_bits", "window_cc", "sweep_probe")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kTileB = 8;
@@ -137,19 +139,12 @@ edge_bits_kernel(const float* __restrict__ x, const float* __restrict__ y,
 extern "C" int cct_edge_bits(const float* x, const float* y, const float* z, const float* inc,
                              const unsigned char* active, const float* mad, const int* wp,
                              int* bits, int R, int B, int H, int V, float max_d2, void* stream) {
-  static int smem_set[64] = {0};  // per device: the shared memory allowed so far
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static LaunchCache cache;
   const int stride = (kTileR + 2 * V) * (kTileB + H);
   const int smem = stride * static_cast<int>(4 * sizeof(float) + 1);
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(edge_bits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[dev] = smem;
-  }
+  const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(edge_bits_kernel), cache,
+                                         smem, kThreads);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kTileB - 1) / kTileB, (R + kTileR - 1) / kTileR);
   edge_bits_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, y, z, inc, active, mad, wp, bits, R, B, H, V, max_d2);

@@ -17,13 +17,16 @@
 // place between steps), so the window lives in shared memory twice, read
 // from one copy and written to the other, one __syncthreads per step.
 //
-// What bounds it on the card: the bytes are bits (688,128 B at the script's
-// shape, of which V3-V4 read word 0 of bits[dc] for dc < upper) and the
-// labels in and out (2 x 18,944 B), 0.22 us at 3.35 TB/s; the work is a few
-// operations per cell and step.  One block on one SM keeps the steps'
+// What bounds it on the card: the bytes are the labels in and out (2 x
+// 18,944 B at the script's shape) and, for V3, V3i and V4 only, word 0 of
+// bits[dc] for dc < upper (344,064 B at upper = 21; no variant reads word
+// 1), 0.01-0.11 us at 3.35 TB/s; the work is a few operations per cell and
+// step.  One block on one SM keeps the steps'
 // barriers cheap; the time is the steps' latency, not the card's rates.
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -142,12 +145,14 @@ __global__ void sweep_probe_kernel(int variant, const int* __restrict__ bits,
 
 extern "C" int cct_sweep_probe(int variant, const int* bits, const int* upper, const int* L,
                                int* out, int R, int B, int H, int V, int PW, void* stream) {
+  static LaunchCache cache;
+  constexpr int kThreads = 1024;
   const Geometry g{R, B, H, V, PW, H + B, R * (H + B)};
   const int smem = 2 * g.R * g.WCOL * static_cast<int>(sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(sweep_probe_kernel), cache,
+                                         smem, kThreads);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sweep_probe_kernel<<<1, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
+  sweep_probe_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       variant, bits, upper, L, out, g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,10 +40,11 @@
 //   * The change flag is a global word per round parity, set by one
 //     atomicOr per block and cleared a round ahead.
 //
-// What bounds it on the card: the bytes are K1's bits (4.5 MB, read once
-// from HBM, then the words of the offsets in use from L2 each round) and the
-// labels, 1.4 us at the HBM rate; the work is one relaxation per set bit per
-// round and two scans.  At the main path's windows the time is latency: per
+// What bounds it on the card: the bytes are the two words of K1's bits for
+// each offset in use, dc < min(max_wp, H) + 1 (read once from HBM, then from
+// L2 each round: 2.6 MB on a window whose widest wedge is 11 columns, 4.5 MB
+// when all 21 offsets count), and the labels in and out, 0.8-1.4 us at the
+// HBM rate; the work is one relaxation per set bit per round and two scans.  At the main path's windows the time is latency: per
 // round 2-3 grid barriers and 4-6 dependent memory round trips (staging,
 // edge words, each scan pass) on a sparse window; on a dense one (7.5 M set
 // bits) step 1's per-bit work.
@@ -51,6 +52,8 @@
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -363,37 +366,16 @@ window_cc_kernel(const int* __restrict__ bits, const int* __restrict__ labels_in
 extern "C" int cct_window_cc(const int* bits, const int* labels_in, const int* max_wp,
                              int* labels, int* old, int* flags, int R, int B, int H, int V,
                              int max_rounds, void* stream) {
-  // per device: the grid, and the shared memory the kernel may use
-  static int blocks[64] = {0};
-  static int smem_set[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static LaunchCache cache;
+  const void* kernel = reinterpret_cast<const void*>(window_cc_kernel);
   const int smem = 2 * tile_cells(H, V) * static_cast<int>(sizeof(int));
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(window_cc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[dev] = smem;
-    blocks[dev] = 0;  // the occupancy check below depends on it
-  }
-  if (blocks[dev] == 0) {
-    int sms = 0, per_sm = 0, coop = 0;
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (!coop) return static_cast<int>(cudaErrorNotSupported);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_cc_kernel, kThreads, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    blocks[dev] = sms;  // one block per SM, all co-resident
-  }
+  int blocks = 0;
+  cudaError_t err = prepare_launch(kernel, cache, smem, kThreads, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&bits, &labels_in, &max_wp, &labels, &old, &flags, &R, &B, &H, &V,
                   &max_rounds};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(window_cc_kernel), blocks[dev],
-                                    kThreads, args, smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchCooperativeKernel(kernel, blocks, kThreads, args, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

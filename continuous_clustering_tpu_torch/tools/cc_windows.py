@@ -4,6 +4,10 @@ snake that needs more rounds than the fixpoint's cap.
 
 Each function returns ``(bits (H+1, 2, R, B) i32, L0 (R, H+B) i32, max_wp
 (1,) i32)`` on the CPU, made from a numpy seed.
+
+No path of the system calls it.  It sits in the package's tools, beside
+``bench_setup``, so that ``chip_smoke.py`` (which imports only the package)
+and the tests hold K2 against its twin on the same windows.
 """
 
 from __future__ import annotations

@@ -34,14 +34,15 @@ def probe_inputs(seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     return bits, L
 
 
-def run(device="cuda", seed: int = 0, uppers=UPPERS) -> List[Tuple[str, str]]:
-    """(name, "OK" or "FAIL <reason>") per variant, in the script's order."""
+def run(device="cuda", seed: int = 0, uppers=UPPERS) -> List[Tuple[str, str, int]]:
+    """(name, "OK" or "FAIL <reason>", max |kernel - twin| over the uppers
+    that ran) per variant, in the script's order."""
     dev = torch.device(device)
     bits_np, L_np = probe_inputs(seed)
     bits, L = torch.from_numpy(bits_np).to(dev), torch.from_numpy(L_np).to(dev)
     results = []
     for name in VARIANTS:
-        reasons = []
+        reasons, err = [], 0
         for upper in uppers:
             u = torch.tensor(upper, dtype=torch.int32, device=dev)
             try:
@@ -50,10 +51,11 @@ def run(device="cuda", seed: int = 0, uppers=UPPERS) -> List[Tuple[str, str]]:
                 reasons.append(f"upper={upper}: {e}")
                 continue
             want = sweep_probe_reference(name, bits, u, L)
+            err = max(err, int((got.long() - want.long()).abs().max()))
             if not torch.equal(got, want):
                 n = int((got != want).sum())
                 reasons.append(f"upper={upper}: {n} of {want.numel()} cells differ")
-        results.append((name, "FAIL " + "; ".join(reasons) if reasons else "OK"))
+        results.append((name, "FAIL " + "; ".join(reasons) if reasons else "OK", err))
     return results
 
 
@@ -63,9 +65,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     results = run(args.device, args.seed)
-    for name, status in results:
+    for name, status, _ in results:
         print(f"{name}: {status}", flush=True)
-    return 0 if all(s == "OK" for _, s in results) else 1
+    return 0 if all(s == "OK" for _, s, _ in results) else 1
 
 
 if __name__ == "__main__":

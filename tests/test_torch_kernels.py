@@ -152,5 +152,5 @@ def test_sweep_probe_kernels_match_plain(upper):
 
     before = sweep_probe.LAUNCHES["sweep_probe"]
     results = run("cuda", seed=upper, uppers=(upper,))
-    assert results == [(name, "OK") for name in sweep_probe.VARIANTS]
+    assert results == [(name, "OK", 0) for name in sweep_probe.VARIANTS]
     assert sweep_probe.LAUNCHES["sweep_probe"] == before + len(sweep_probe.VARIANTS)
