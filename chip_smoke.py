@@ -13,7 +13,10 @@ side by side), then:
    at R = 64, B = 416 (the KITTI-shaped stream, and the densest of a few
    windows of the ``near_field`` throughput scene), on a snake window that
    runs into the 64-round cap, and on a random window at R = 128, B = 512,
-   and times both kernels on both real windows with CUDA events;
+   and times both kernels on both real windows with CUDA events; then one
+   K1 launch over the two real windows stacked and one K2 launch over
+   them and the snake, each stream against its own window's twin (3, 4
+   and 64 unconverged rounds in one launch);
 3. checks the port facade on the card against the sequential oracle at
    32 x 220 (partition >= 0.995, ground labels exact) and on the serpentine
    stream (converges, stays one component);
@@ -31,13 +34,20 @@ side by side), then:
    scene runs twice and must give the same checksum;
 8. runs the CC sweep's probe variants through their tool
    (``tools/sweep_probe.py``) at upper = 1, 7 and 21, each against its
-   twin, and times each kernel.
+   twin, and times each kernel;
+9. streams three sensors of the KITTI configuration, each its own scene
+   for 2 revolutions, through the multi-sensor step
+   (``parallel/multi_sensor.py``, K1 and K2 launched once per step for all
+   streams), times it, counts one step's device kernels under the
+   profiler, and holds every stream's published partition, meta and state
+   against the same stream run alone through ``pipeline_step`` on the card.
 
-Phases 3 to 8 drive the port's paths; the kernels' launch counters are set
-to 0 just before each and read just after, and each of phases 3-7 must have
-launched K1 and K2, phase 8 the probe kernel.  Every phase raises on
-failure.  The line before the last is a JSON object with one entry per
-kernel (launches summed over phases 3-8; ``max_abs_err`` over every
+Phases 3 to 9 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each of phases 3-7 and 9
+must have launched K1 and K2 (phase 9 once per step), phase 8 the probe
+kernel.  Every phase raises on failure.  The line before the last is a JSON
+object with one entry per kernel (launches summed over phases 3-9;
+``max_abs_err`` over every
 comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
 without; K1 and K2 on the KITTI window, the probe's slowest variant at
 upper = 21; ``bound_ms`` for the same inputs); the last line is ``{"ok": true,
@@ -417,6 +427,7 @@ def main() -> int:
     max_d2 = float(np.float32(cl.max_distance) * np.float32(cl.max_distance))
     k1_kw = dict(H=H, V=V, max_d2=max_d2)
     k2 = {}
+    k2_inputs = {}   # (bits, L0, max_wp) of each window, the stacked launches' inputs
     # max |kernel - twin| over every comparison of each kernel in this run
     max_err = {"edge_bits": 0, "window_cc": 0}
     for wname, win in windows.items():
@@ -431,6 +442,7 @@ def main() -> int:
         check(torch.equal(bits, bits_ref), f"{wname}: K1 bits differ from the plain twin "
               f"(max |diff| {err})")
         max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
+        k2_inputs[wname] = (bits_ref, win.L0, max_wp)
         rounds, err = check_window_cc(f"{wname} window", bits, win.L0, max_wp, H, V,
                                       converged=True)
         max_err["window_cc"] = max(max_err["window_cc"], err)
@@ -463,6 +475,10 @@ def main() -> int:
         max_err["window_cc"] = max(max_err["window_cc"], err)
         print(f"phase 2: {sname} window {tuple(sL0.shape)}: K2 labels, converged "
               f"({converged}) and rounds ({rounds}) equal the plain twin's")
+        if sname == "snake":
+            k2_inputs[sname] = (sbits, sL0, swp)
+    for name, err in check_stacked_kernels(windows, k2_inputs, k1_kw, H, V).items():
+        max_err[name] = max(max_err[name], err)
 
     launches = Launches()
 
@@ -578,6 +594,7 @@ def main() -> int:
           f"launches {got} != association steps {pipe.n_steps}")
     check(len(clusters) > 0, "no clusters were published")
     points = sum(int(np.isfinite(f["xyz"][:, 0]).sum()) for f in dev_firings)
+    phase5 = dict(pts_s=points / dt, ms_step=dt / steps * 1e3)
     print(f"phase 5: {card}: device insertion, 3 revolutions of {FULL_ROWS} x {n_cols} at "
           f"firing batch {B_FIRINGS}: {points} points in {dt:.3f} s = {points / dt:.0f} "
           f"points/s; {steps} steps, {dt / steps * 1e3:.2f} ms/step; launches {got}; "
@@ -712,6 +729,9 @@ def main() -> int:
                       f"{t['bounds']['bound_ms']:.7f} ({t['bounds']['bytes']})"
                       for v, t in probe_t.items()))
 
+    # ---- phase 9: three sensor streams in one step ---------------------------
+    multi_stream_phase(cfg, dev, launches, card, phase5)
+
     # ms: CUDA events around the launch as the host issues it, the host's
     # enqueue included; device_ms: the device's time alone
     kit, pt = k2["kitti"], probe_t[slowest]
@@ -736,6 +756,188 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_stacked_kernels(windows, k2_inputs, k1_kw, H, V):
+    """One K1 launch over the real ``windows`` stacked, and one K2 launch
+    over every window of ``k2_inputs`` stacked: each stream's bits, labels,
+    converged flag and round count must be its own window's twin's; prints
+    each launch's device time.  Returns max |kernel - twin| per kernel."""
+    import torch
+
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+
+    fields = ("xw", "yw", "zw", "incw", "active_w", "mad", "wp")
+    k1_args = [torch.stack([getattr(w, f) for w in windows.values()]) for f in fields]
+    bits = cc_cuda.edge_bits_stacked(*k1_args, **k1_kw)
+    torch.cuda.synchronize()
+    err = {"edge_bits": 0, "window_cc": 0}
+    for s, wname in enumerate(windows):
+        err["edge_bits"] = max(err["edge_bits"], max_abs_diff(bits[s], k2_inputs[wname][0]))
+        check(torch.equal(bits[s], k2_inputs[wname][0]),
+              f"stacked K1: stream {s} ({wname}) differs from its window's twin")
+    names = list(k2_inputs)
+    k2_args = [torch.stack([k2_inputs[n][0] for n in names]),
+               torch.stack([k2_inputs[n][1] for n in names]),
+               torch.cat([k2_inputs[n][2] for n in names])]
+    lab, ok, rounds = cc_cuda.window_cc_stacked(*k2_args, H=H, V=V)
+    torch.cuda.synchronize()
+    got_rounds = []
+    for s, n in enumerate(names):
+        lab_ref, ok_ref, rounds_ref = cc_cuda.window_cc_reference(*k2_inputs[n], H=H, V=V)
+        err["window_cc"] = max(err["window_cc"], max_abs_diff(lab[s], lab_ref))
+        check(torch.equal(lab[s], lab_ref), f"stacked K2: stream {s} ({n}) labels differ")
+        check(bool(ok[s]) == bool(ok_ref) and int(rounds[s]) == int(rounds_ref),
+              f"stacked K2: stream {s} ({n}) converged {bool(ok[s])} rounds {int(rounds[s])}, "
+              f"twin {bool(ok_ref)} {int(rounds_ref)}")
+        got_rounds.append(int(rounds[s]))
+    t = {"edge_bits": median_ms(lambda: cc_cuda.edge_bits_stacked(*k1_args, **k1_kw),
+                                device_only=True),
+         "window_cc": median_ms(lambda: cc_cuda.window_cc_stacked(*k2_args, H=H, V=V),
+                                device_only=True)}
+    print(f"phase 2: stacked launches: K1 over {list(windows)} in one launch, bits equal each "
+          f"window's twin ({t['edge_bits']:.4f} ms device); K2 over {names} in one launch, "
+          f"labels, converged {[bool(x) for x in ok.tolist()]} and rounds {got_rounds} equal "
+          f"each window's twin ({t['window_cc']:.4f} ms device)")
+    return err
+
+
+def published_labels(steps):
+    """Cluster id by point of every column a stream published, from its
+    steps' (meta, slab head, slab tail): the columns [fu_old, fu_new) of
+    each step's publish slab, joined through the meta's join tables, as the
+    facade reads them."""
+    import torch
+
+    from continuous_clustering_tpu_torch.models.step import META_FU_NEW, META_FU_OLD, N_META
+    from continuous_clustering_tpu_torch.ops.readout import FETCH_ORDER
+
+    row = {f: FETCH_ORDER.index(f) for f in ("uidx_lo", "uidx_hi", "slot")}
+    labels = {}
+    for meta, head, tail in steps:
+        m = meta.cpu().numpy()
+        fu_old, fu_new = int(m[META_FU_OLD]), int(m[META_FU_NEW])
+        if fu_old < 0 or fu_new <= fu_old:
+            continue
+        slab = torch.cat([head, tail], dim=2)[:, :, :fu_new - fu_old].cpu().numpy()
+        check(slab.shape[2] == fu_new - fu_old, "a step published past its slab")
+        uidx = ((slab[row["uidx_hi"]].view(np.uint32).astype(np.uint64) << np.uint64(32))
+                | slab[row["uidx_lo"]].view(np.uint32).astype(np.uint64))
+        slot = slab[row["slot"]]
+        cid = np.where(slot >= 0, m[N_META:].reshape(2, -1)[0][np.maximum(slot, 0)], 0)
+        valid = uidx != np.iinfo(np.uint64).max
+        labels.update(zip(uidx[valid].tolist(), cid[valid].tolist()))
+    return labels
+
+
+def states_equal(a, b) -> bool:
+    """Every field of two states equal (NaN where the other has NaN)."""
+    import torch
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype.is_floating_point:
+            if not bool(((x == y) | (x.isnan() & y.isnan())).all()):
+                return False
+        elif not torch.equal(x, y):
+            return False
+    return True
+
+
+def multi_stream_phase(cfg, dev, launches, card, phase5, n_streams=3, n_rev=2):
+    """Phase 9: ``n_streams`` sensors of the KITTI configuration, each its
+    own scene, through the multi-sensor step on the card; then each stream
+    alone through ``pipeline_step`` on the same batches."""
+    import torch
+
+    from continuous_clustering_tpu_torch.evaluation.partition import partition_agreement
+    from continuous_clustering_tpu_torch.models.step import (META_CC_FAILED, META_OVERFLOW,
+                                                             EgoCalibration, pipeline_step)
+    from continuous_clustering_tpu_torch.models.throughput import stack_batches
+    from continuous_clustering_tpu_torch.ops.insertion import make_firing_batch
+    from continuous_clustering_tpu_torch.ops.state import copy_state, init_state
+    from continuous_clustering_tpu_torch.parallel.multi_sensor import (make_sharded_step,
+                                                                       stacked_init)
+
+    n_cols = cfg.range_image.num_columns
+    eye = np.eye(4)
+    streams = [kitti_stream(FULL_ROWS, n_cols, n_rev, seed=5 + s, num_boxes=14 + s)
+               for s in range(n_streams)]
+    n_steps = -(-len(streams[0]) // B_FIRINGS)
+    batches = [[make_firing_batch(f[k * B_FIRINGS:(k + 1) * B_FIRINGS],
+                                  [eye] * len(f[k * B_FIRINGS:(k + 1) * B_FIRINGS]),
+                                  B_FIRINGS, FULL_ROWS, dev) for k in range(n_steps)]
+               for f in streams]
+    points = sum(int(np.isfinite(f["xyz"][:, 0]).sum()) for st in streams for f in st)
+    # the facade's step width, publish slab and calibration
+    ref = make_facade(cfg, FULL_ROWS, dev, B_FIRINGS, insertion="device")
+    B, W, W1, calib = ref._batch_B, ref._slab_W, ref._slab_W1, ref._make_calib()
+    scalib = EgoCalibration(*[torch.stack([t] * n_streams) for t in calib])
+    sbatches = [stack_batches([batches[s][k] for s in range(n_streams)]) for k in range(n_steps)]
+    run = make_sharded_step(cfg, B, device=dev, slab_cols=W, slab_head=W1)
+    state = stacked_init(cfg, FULL_ROWS, n_streams, dev)
+    ring_mb = sum(t.numel() * t.element_size() for t in vars(state).values()) / 1e6
+
+    infos = []
+    torch.cuda.synchronize()
+    launches.start()
+    t0 = time.perf_counter()
+    for k in range(n_steps):
+        if k == n_steps - 1:
+            before_last = copy_state(state)
+        state, info = run(state, sbatches[k], scalib)
+        infos.append(info)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = launches.stop("phase 9")
+    check(got["edge_bits"] == got["window_cc"] == n_steps,
+          f"launches {got}: K1 and K2 must launch once per step of {n_steps}")
+    metas = torch.stack([i.meta for i in infos]).cpu()       # (steps, streams, lanes)
+    check(not bool(metas[:, :, [META_OVERFLOW, META_CC_FAILED]].any()), "overflow or cc_failed")
+
+    # one step under the profiler: device kernels launched, device busy time
+    launches.start()
+    try:
+        prof = device_profile(lambda: run(before_last, sbatches[-1], scalib))
+    except RuntimeError as e:  # the profiler is an observer: its failure fails no check
+        print(f"phase 9: torch.profiler failed: {e}")
+        prof = None
+    launches.stop("phase 9 profile")
+    del before_last
+
+    single_dt, agree = 0.0, []
+    for s in range(n_streams):
+        st, steps = init_state(cfg, FULL_ROWS, dev), []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n_steps):
+            st, info = pipeline_step(cfg, st, batches[s][k], calib, B, W, W1)
+            steps.append(info)
+        torch.cuda.synchronize()
+        single_dt += time.perf_counter() - t0
+        for k, info in enumerate(steps):
+            check(torch.equal(info.meta.cpu(), metas[k, s]),
+                  f"stream {s}, step {k}: meta differs from the stream run alone")
+        check(states_equal(st, type(st)(**{n: t[s] for n, t in vars(state).items()})),
+              f"stream {s}: state differs from the stream run alone")
+        alone = published_labels([(i.meta, i.slab, i.slab_ext) for i in steps])
+        together = published_labels([(i.meta[s], i.slab[s], i.slab_ext[s]) for i in infos])
+        check(alone.keys() == together.keys() and len(alone) > 10000,
+              f"stream {s}: {len(together)} points published, {len(alone)} alone")
+        agree.append(partition_agreement(alone, together))
+        check(agree[-1] == 1.0, f"stream {s}: partition agreement {agree[-1]}")
+    prof_txt = ("profiler saw no device time" if prof is None else
+                f"one step under the profiler: {prof[0]} device kernels, device busy "
+                f"{prof[1]:.2f} of {prof[2]:.2f} ms ({100 * prof[1] / prof[2]:.2f} %)")
+    print(f"phase 9: {card}: {n_streams} streams of {FULL_ROWS} x {n_cols} ({n_rev} revolutions "
+          f"each, firing batch {B_FIRINGS}, {ring_mb:.0f} MB of state) in one step: {points} "
+          f"points in {dt:.3f} s = {points / dt:.0f} points/s, {n_steps} steps, "
+          f"{dt / n_steps * 1e3:.2f} ms/step; launches {got}; {prof_txt}")
+    print(f"phase 9: the same streams one after another through pipeline_step: "
+          f"{points / single_dt:.0f} points/s, {single_dt / (n_steps * n_streams) * 1e3:.2f} ms "
+          f"per stream step; phase 5 (one stream, facade): {phase5['pts_s']:.0f} points/s, "
+          f"{phase5['ms_step']:.2f} ms/step; every stream's meta and state equal its run "
+          f"alone, published partition agreement {agree}")
 
 
 def serpentine_firings():

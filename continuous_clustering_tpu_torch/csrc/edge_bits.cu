@@ -23,6 +23,11 @@
 // the row.  Every walk step then reads shared memory only.  The bits of one
 // (dc, r) go out as kTileB consecutive words.
 //
+// Streams: the launch takes S windows stacked along a leading axis (the
+// multi-sensor step launches K1 once for all its streams); blockIdx.z is the
+// stream, and every pointer offsets by that stream's plane.  A single window
+// is the S = 1 case.
+//
 // What bounds it on the card: at R = 64, B = 416, H = V = 20 it writes
 // 4.5 MB of bits (mostly zero words) and reads 0.5 MB of window, 1.5 us at
 // the HBM rate.  The walks are short compare chains in shared memory; on a
@@ -52,6 +57,17 @@ edge_bits_kernel(const float* __restrict__ x, const float* __restrict__ y,
                  float max_d2) {
   extern __shared__ float smem[];
   const int WCOL = H + B;
+  // this block's stream: its window, its batch points and its bits
+  const size_t s = blockIdx.z;
+  const size_t win = static_cast<size_t>(R) * WCOL, pts = static_cast<size_t>(R) * B;
+  x += s * win;
+  y += s * win;
+  z += s * win;
+  inc += s * win;
+  active += s * win;
+  mad += s * pts;
+  wp += s * pts;
+  bits += s * 2 * (H + 1) * pts;
   const int b0 = blockIdx.x * kTileB;
   const int r0 = blockIdx.y * kTileR;
   Tile t;
@@ -138,14 +154,15 @@ edge_bits_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 extern "C" int cct_edge_bits(const float* x, const float* y, const float* z, const float* inc,
                              const unsigned char* active, const float* mad, const int* wp,
-                             int* bits, int R, int B, int H, int V, float max_d2, void* stream) {
+                             int* bits, int S, int R, int B, int H, int V, float max_d2,
+                             void* stream) {
   static LaunchCache cache;
   const int stride = (kTileR + 2 * V) * (kTileB + H);
   const int smem = stride * static_cast<int>(4 * sizeof(float) + 1);
   const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(edge_bits_kernel), cache,
                                          smem, kThreads);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kTileB - 1) / kTileB, (R + kTileR - 1) / kTileR);
+  const dim3 grid((B + kTileB - 1) / kTileB, (R + kTileR - 1) / kTileR, S);
   edge_bits_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, y, z, inc, active, mad, wp, bits, R, B, H, V, max_d2);
   return static_cast<int>(cudaGetLastError());

@@ -18,6 +18,17 @@
 // labels, converged and the round count equal the twin's on every input.
 // Nothing leaves the device: no host sync per round.
 //
+// Streams.  One launch takes S <= 32 windows of one shape stacked along a
+// leading axis (the multi-sensor step launches K2 once for all its
+// streams; a single window is S = 1).  Every window has its own column
+// bound min(max_wp[s], H) + 1, its own change word per round parity, its
+// own converged flag and round count.  The work loops run over all
+// windows (tiles over S x n_tiles, rows over S x R, columns over S x B),
+// and a bit mask `live`, the same in every thread, holds the windows that
+// changed in the last round: a window that has converged is skipped from
+// then on, its labels at the fixpoint and its round count the twin's.
+// The rounds go on while any window changed and it < max_rounds.
+//
 // Layout.  The labels live in global memory twice, `old` and `labels`
 // (112 KB each at R = 64, B = 416, resident in the 50 MB L2), so the window
 // has no size limit but the card's memory: step 1 reads old and lowers
@@ -37,8 +48,9 @@
 //     registers (all loaded at once), scans them, and the warp combines the
 //     lanes' results with shuffles, so no thread walks a whole line; a line
 //     longer than 32 x kCells is taken in pieces with a carry.
-//   * The change flag is a global word per round parity, set by one
-//     atomicOr per block and cleared a round ahead.
+//   * The change flags are a global word per window and round parity, set
+//     by one atomicOr per block and changed window and cleared a round
+//     ahead.
 //
 // What bounds it on the card: the bytes are the two words of K1's bits for
 // each offset in use, dc < min(max_wp, H) + 1 (read once from HBM, then from
@@ -74,7 +86,7 @@ __host__ __device__ inline int tile_cells(int H, int V) {
 struct Window {
   const int* bits;
   int R, B, H, V, WCOL;
-  size_t plane;  // R * B
+  int plane;  // R * B
 };
 
 // The link of cell i of a line to cell i - 1 (1 <= i < n) is bit `shift`
@@ -200,16 +212,21 @@ __device__ void line_min(int* y, int* x, int stride, int n, const Links& lk, boo
   else line_min_k<kCells>(y, x, stride, n, lk, compare, local);
 }
 
-// compare cells [0, ncols) of every row with old, and copy them there
-__device__ void compare_left(int* y, int* x, const Window& w, int ncols, int gtid, int gsize,
-                             int& local) {
-  for (int idx = gtid; idx < w.R * ncols; idx += gsize) {
-    const int r = idx / ncols;
-    const int i = r * w.WCOL + (idx - r * ncols);
+// compare cells [0, ncols) of every row of every live window with old, and
+// copy them there; a window with a changed cell sets its bit of `local`
+__device__ void compare_left(int* y, int* x, int S, unsigned live, int R, int WCOL, int ncols,
+                             int gtid, int gsize, unsigned& local) {
+  const int per = R * ncols;
+  for (int idx = gtid; idx < S * per; idx += gsize) {
+    const int s = idx / per;
+    if (!bit(live, s)) continue;
+    const int k = idx - s * per;
+    const int r = k / ncols;
+    const size_t i = static_cast<size_t>(s) * R * WCOL + r * WCOL + (k - r * ncols);
     const int v = __ldcg(y + i);
     if (__ldcg(x + i) != v) {
       x[i] = v;
-      local = 1;
+      local |= 1u << s;
     }
   }
 }
@@ -220,9 +237,11 @@ __device__ void compare_left(int* y, int* x, const Window& w, int ncols, int gti
 // twice: `s_old` is read, `s_new` takes the tile's pulls and pushes with
 // shared-memory atomicMin.  Then every staged cell the tile lowered goes to
 // `labels` with one global atomicMin (no return value: a reduction that
-// does not stall).
-__device__ void relax_tile(const Window& w, int tile, int upper, const int* old, int* labels,
-                          int* s_old, int* s_new) {
+// does not stall).  It is a call of its own, not inlined: at 512 threads a
+// thread has 128 registers, and inlined beside the kernel's per-window
+// bookkeeping its edge loop spilled and ran 2.5x slower on a dense window.
+__device__ __noinline__ void relax_tile(const Window& w, int tile, int upper, const int* old,
+                                        int* labels, int* s_old, int* s_new) {
   const int tiles_b = (w.B + kTileB - 1) / kTileB;
   const int r0 = (tile / tiles_b) * kTileR;
   const int b0 = (tile - (tile / tiles_b) * tiles_b) * kTileB;
@@ -296,83 +315,128 @@ __device__ void relax_tile(const Window& w, int tile, int upper, const int* old,
 
 __global__ void __launch_bounds__(kThreads)
 window_cc_kernel(const int* __restrict__ bits, const int* __restrict__ labels_in,
-                 const int* __restrict__ max_wp, int* labels, int* old, int* flags, int R, int B,
-                 int H, int V, int max_rounds) {
+                 const int* __restrict__ max_wp, int* labels, int* old, int* flags, int S, int R,
+                 int B, int H, int V, int max_rounds) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int smem[];
-  const Window w{bits, R, B, H, V, H + B, static_cast<size_t>(R) * B};
+  __shared__ unsigned s_changed;  // the windows this block changed in the round
+  const int WCOL = H + B;
+  const int plane = R * B;
+  const int win_bits = 2 * (H + 1) * plane;  // one window's bits
   int* s_old = smem;
   int* s_new = smem + tile_cells(H, V);
   const int n_tiles = ((R + kTileR - 1) / kTileR) * ((B + kTileB - 1) / kTileB);
-  const int n = R * w.WCOL;
+  const int n = R * WCOL;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x;
   const int gsize = gridDim.x * blockDim.x;
   // line index of this warp: consecutive lines go to different SMs
   const int gwarp = (threadIdx.x >> 5) * gridDim.x + blockIdx.x;
   const int nwarps = gsize >> 5;
-  int* chg = flags + 2;  // change flags of even and odd rounds
-  for (int i = gtid; i < n; i += gsize) {
+  // flags: converged[S], rounds[S], then the change word of window s in a
+  // round of parity p at 2 S + p S + s
+  for (int i = gtid; i < S * n; i += gsize) {
     const int v = labels_in[i];
     labels[i] = v;
     old[i] = v;
   }
-  if (gtid == 0) chg[0] = 0;
-  const int upper = min(max(max_wp[0], 0), H) + 1;
+  if (gtid < S) flags[2 * S + gtid] = 0;
+  if (threadIdx.x == 0) s_changed = 0u;
   const bool has_h = H >= 1, has_v = V >= 1;
+  unsigned live = S >= 32 ? kFull : (1u << S) - 1u;
   grid.sync();
 
   int it = 0;
-  bool changed = true;
-  while (changed && it < max_rounds) {
+  while (live != 0u && it < max_rounds) {
     // 1. relax every forward edge, Jacobi: read old, lower labels
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-      relax_tile(w, tile, upper, old, labels, s_old, s_new);
+    for (int t = blockIdx.x; t < S * n_tiles; t += gridDim.x) {
+      const int s = t / n_tiles;
+      if (!bit(live, s)) continue;
+      const Window w{bits + s * win_bits, R, B, H, V, WCOL, plane};
+      const int upper = min(max(__ldg(max_wp + s), 0), H) + 1;
+      relax_tile(w, t - s * n_tiles, upper, old + s * n, labels + s * n, s_old, s_new);
+    }
     grid.sync();
-    if (gtid == 0) chg[(it + 1) & 1] = 0;  // read last a round ago
+    if (gtid < S) flags[(2 + ((it + 1) & 1)) * S + gtid] = 0;  // read last a round ago
     const bool col_phase = has_v && it >= 1;
-    int local = 0;
+    unsigned local = 0u;
     // 2. rows; they end the round when no column scan follows
     if (has_h) {
-      for (int row = gwarp; row < R; row += nwarps) {
-        const Links hl{bits + (2 + V / 32) * w.plane + row * B, -1, 1, V % 32};
-        const int base = row * w.WCOL + H - 1;
-        line_min(labels + base, old + base, 1, B + 1, hl, !col_phase, local);
+      for (int line = gwarp; line < S * R; line += nwarps) {
+        const int s = line / R;
+        if (!bit(live, s)) continue;
+        const int row = line - s * R;
+        const Links hl{bits + s * win_bits + (2 + V / 32) * plane + row * B, -1, 1, V % 32};
+        const int base = s * n + row * WCOL + H - 1;
+        int c = 0;
+        line_min(labels + base, old + base, 1, B + 1, hl, !col_phase, c);
+        if (c) local |= 1u << s;
       }
     }
-    if (!col_phase) compare_left(labels, old, w, has_h ? H - 1 : w.WCOL, gtid, gsize, local);
+    if (!col_phase)
+      compare_left(labels, old, S, live, R, WCOL, has_h ? H - 1 : WCOL, gtid, gsize, local);
     // 3. columns
     if (col_phase) {
       grid.sync();
-      for (int b = gwarp; b < B; b += nwarps) {
-        const Links cl{bits + ((V - 1) / 32) * w.plane + b, 0, B, (V - 1) % 32};
-        line_min(labels + H + b, old + H + b, w.WCOL, R, cl, true, local);
+      for (int line = gwarp; line < S * B; line += nwarps) {
+        const int s = line / B;
+        if (!bit(live, s)) continue;
+        const int b = line - s * B;
+        const Links cl{bits + s * win_bits + ((V - 1) / 32) * plane + b, 0, B, (V - 1) % 32};
+        const int base = s * n + H + b;
+        int c = 0;
+        line_min(labels + base, old + base, WCOL, R, cl, true, c);
+        if (c) local |= 1u << s;
       }
-      compare_left(labels, old, w, H, gtid, gsize, local);
+      compare_left(labels, old, S, live, R, WCOL, H, gtid, gsize, local);
     }
-    // 4. the change flag
-    if (__syncthreads_or(local) && threadIdx.x == 0) atomicOr(chg + (it & 1), 1);
+    // 4. the change flags: the block's windows gather in shared memory, then
+    // one atomicOr per block and changed window
+    local = __reduce_or_sync(kFull, local);
+    if ((threadIdx.x & 31) == 0 && local != 0u) atomicOr(&s_changed, local);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (unsigned m = s_changed; m != 0u; m &= m - 1u) atomicOr(flags + (2 + (it & 1)) * S + __ffs(m) - 1, 1);
+      s_changed = 0u;
+    }
     grid.sync();
-    changed = *reinterpret_cast<volatile int*>(chg + (it & 1)) != 0;
+    unsigned next = 0u;
+    for (int s = 0; s < S; ++s)
+      if (bit(live, s) && *reinterpret_cast<volatile int*>(flags + (2 + (it & 1)) * S + s) != 0)
+        next |= 1u << s;
     ++it;
+    // a window that changed nothing in this round has converged after it
+    if (gtid == 0) {
+      for (unsigned m = live & ~next; m != 0u; m &= m - 1u) {
+        flags[__ffs(m) - 1] = 1;
+        flags[S + __ffs(m) - 1] = it;
+      }
+    }
+    live = next;
   }
+  // the windows still changing at the round cap
   if (gtid == 0) {
-    flags[0] = changed ? 0 : 1;
-    flags[1] = it;
+    for (unsigned m = live; m != 0u; m &= m - 1u) {
+      flags[__ffs(m) - 1] = 0;
+      flags[S + __ffs(m) - 1] = it;
+    }
   }
 }
 
 }  // namespace
 
 extern "C" int cct_window_cc(const int* bits, const int* labels_in, const int* max_wp,
-                             int* labels, int* old, int* flags, int R, int B, int H, int V,
+                             int* labels, int* old, int* flags, int S, int R, int B, int H, int V,
                              int max_rounds, void* stream) {
   static LaunchCache cache;
+  // at most 32 windows (the change masks are one word), offsets in 32 bits
+  if (S < 1 || S > 32 || static_cast<long long>(S) * 2 * (H + 1) * R * B > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel = reinterpret_cast<const void*>(window_cc_kernel);
   const int smem = 2 * tile_cells(H, V) * static_cast<int>(sizeof(int));
   int blocks = 0;
   cudaError_t err = prepare_launch(kernel, cache, smem, kThreads, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&bits, &labels_in, &max_wp, &labels, &old, &flags, &R, &B, &H, &V,
+  void* args[] = {&bits, &labels_in, &max_wp, &labels, &old, &flags, &S, &R, &B, &H, &V,
                   &max_rounds};
   err = cudaLaunchCooperativeKernel(kernel, blocks, kThreads, args, smem,
                                     static_cast<cudaStream_t>(stream));

@@ -16,9 +16,10 @@ import numpy as np
 from .point_cloud import POINT_DTYPE
 
 from .. import native
-from ..ops.readout import FETCH_ORDER, N_SLAB_ROWS
+from ..ops.readout import FETCH_ORDER, N_SLAB_ROWS, slab_rows
 
-# slab row order compiled into readout.cpp (enum SlabRow, v3 layout)
+# slab row order compiled into readout.cpp (enum SlabRow, v3 layout); the
+# nbr_stats row is optional and trails
 _EXPECTED_ORDER = (
     "x", "y", "z", "distance", "azimuth", "inclination", "cont_az",
     "finish_az", "stamp_lo", "stamp_hi", "uidx_lo", "uidx_hi", "pk8",
@@ -46,8 +47,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def _prep(slab: np.ndarray, tabs: np.ndarray):
-    if slab.dtype != np.int32 or slab.ndim != 3 or slab.shape[0] != N_SLAB_ROWS:
-        raise ValueError(f"slab must be ({N_SLAB_ROWS}, R, W) int32, got {slab.dtype} {slab.shape}")
+    if (slab.dtype != np.int32 or slab.ndim != 3
+            or slab.shape[0] not in (slab_rows(False), slab_rows(True))):
+        raise ValueError(f"slab must be ({N_SLAB_ROWS} or {slab_rows(True)}, R, W) int32, "
+                         f"got {slab.dtype} {slab.shape}")
     tabs = np.ascontiguousarray(tabs, dtype=np.int32)
     if tabs.ndim != 2 or tabs.shape[0] != 2:
         raise ValueError(f"join tables must be (2, K), got {tabs.shape}")

@@ -36,7 +36,7 @@ from ..io.point_cloud import ProcessingStage, combine_u64, stage_dtype
 
 from ..io import native_readout
 from ..ops.ingest import N_BLOCK_FIELDS, N_BLOCK_SCALARS, N_MERGED_PLANES, split_merged, unpack_block
-from ..ops.insertion import FiringBatch
+from ..ops.insertion import FiringBatch, make_firing_batch
 from ..ops.readout import join_tables, packed_readout, unpack_slab
 from ..ops.state import RingState, init_state, rebase_azimuth
 from .host_insertion import HostInsertion
@@ -224,38 +224,8 @@ class ContinuousClustering:
         return out
 
     def _make_batch(self, firings, poses) -> FiringBatch:
-        """The firing batch on the device, padded to the batch size (padding
-        firings are invalid and carry the identity pose)."""
-        F, R = self._batch_F, self._num_rows
-        xyz = np.full((F, R, 3), np.nan, np.float32)
-        stamp = np.zeros((F, R), np.uint64)
-        uidx = np.full((F, R), np.iinfo(np.uint64).max, np.uint64)
-        inten = np.zeros((F, R), np.int32)
-        fidx = np.zeros((F,), np.int32)
-        pose_arr = np.tile(np.eye(4)[:3], (F, 1, 1)).astype(np.float32)
-        for i, f in enumerate(firings):
-            xyz[i] = f["xyz"]
-            if "stamp" in f:
-                stamp[i] = f["stamp"]
-            if "uidx" in f:
-                uidx[i] = f["uidx"]
-            if "intensity" in f:
-                inten[i] = f["intensity"]
-            fidx[i] = f.get("firing_index", 0)
-            pose_arr[i] = poses[i][:3, :]
-
-        def u32(a):
-            return (a & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
-
-        dev = self._device
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        return FiringBatch(
-            xyz=put(xyz), pose=put(pose_arr),
-            stamp_lo=put(u32(stamp)), stamp_hi=put(u32(stamp >> np.uint64(32))),
-            uidx_lo=put(u32(uidx)), uidx_hi=put(u32(uidx >> np.uint64(32))),
-            intensity=put(inten), firing_index=put(fidx),
-            valid=put(np.arange(F) < len(firings)),
-        )
+        """The firing batch on the device, padded to the batch size."""
+        return make_firing_batch(firings, poses, self._batch_F, self._num_rows, self._device)
 
     def _empty_batch(self) -> FiringBatch:
         """A batch of no firings; it carries the last firing's pose, so that
@@ -451,7 +421,8 @@ class ContinuousClustering:
         bucket = min(max(8, 1 << max(0, n - 1).bit_length()), rc)
         if bucket < n:
             raise ValueError(f"column range of {n} exceeds the ring's {rc} columns")
-        slab = packed_readout(self._state, from_gcol % rc, bucket).cpu().numpy()
+        slab = packed_readout(self._state, from_gcol % rc, bucket,
+                              self._config.clustering.record_neighbor_stats).cpu().numpy()
         return slab, 0, join_tables(self._state).cpu().numpy()
 
     @property
@@ -515,8 +486,11 @@ class ContinuousClustering:
         put("ignore_for_clustering", f["is_ignored"].astype(np.uint8))
         put("finished_at_continuous_azimuth_angle",
             f["finish_az"].astype(np.float64) + origin_az)
-        put("number_of_visited_neighbors", np.zeros((R, n), np.uint32))
-        put("num_child_points", np.zeros((R, n), np.uint16))
+        # profiling counters (written when clustering.record_neighbor_stats;
+        # reference …cpp:725 / ros_utils.cpp:291-295): the CC formulation has
+        # no tree children, so the edges found stand in for them
+        put("number_of_visited_neighbors", (f["nbr_stats"] & 0xFFFF).astype(np.uint32))
+        put("num_child_points", (f["nbr_stats"] >> 16).astype(np.uint16))
         put("id", f["cell_cid"].astype(np.uint64))
         rep = np.maximum(f["cell_rep"], 0)
         put("tree_id", rep.astype(np.uint64))

@@ -11,6 +11,11 @@ Two variants:
 Both end with the publish slab, join tables and the packed meta vector: the
 step's scalars ride ONE i32 vector (``StepInfo.meta``) so that the host
 reads them with a single device-to-host copy.
+
+``pipeline_step`` is ``insert_and_segment``, ``associate_and_complete`` and
+``finish_step`` in order; the multi-sensor step
+(``parallel/multi_sensor.py``) runs the same parts per stream and launches
+the association kernels once for all its streams between them.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from ..ops.association import CompleteResult, associate_and_complete
 from ..ops.ground_segmentation import SegmentInputs, ground_segment_columns
 from ..ops.ingest import ColumnBlock, ingest_columns
 from ..ops.insertion import I32_MIN, FiringBatch, fma32, insert_firings
-from ..ops.readout import N_SLAB_ROWS, join_tables, packed_readout
+from ..ops.readout import join_tables, packed_readout, slab_rows
 from ..ops.state import I32_MAX, RingState
 
 # meta vector lanes
@@ -107,13 +112,15 @@ def pack_meta(gcol0, n_cols, fu_old, fu_new, num_new, counter_old,
     return torch.cat([head, join_tabs.reshape(-1)])
 
 
-def _publish_slab(state: RingState, fu_old, slab_cols: int, head_cols: int):
-    """Packed readout of [fu_old, fu_old + slab_cols), split at ``head_cols``."""
+def _publish_slab(config: Config, state: RingState, fu_old, slab_cols: int, head_cols: int):
+    """Packed readout of [fu_old, fu_old + slab_cols), split at ``head_cols``;
+    the ``nbr_stats`` row trails when ``record_neighbor_stats`` is on."""
     R = state.num_rows
-    empty = torch.zeros((N_SLAB_ROWS, R, 0), dtype=torch.int32, device=state.device)
+    with_nbr = config.clustering.record_neighbor_stats
+    empty = torch.zeros((slab_rows(with_nbr), R, 0), dtype=torch.int32, device=state.device)
     if not slab_cols:
         return empty, empty
-    full = packed_readout(state, fu_old.clamp_min(0) % state.ring_cols, slab_cols)
+    full = packed_readout(state, fu_old.clamp_min(0) % state.ring_cols, slab_cols, with_nbr)
     if head_cols <= 0 or head_cols >= slab_cols:
         return full, empty
     return full[:, :, :head_cols], full[:, :, head_cols:]
@@ -132,12 +139,19 @@ def pipeline_step_block(config: Config, state: RingState, block: ColumnBlock,
     )
     state = ground_segment_columns(config, state, seg_in, batch_cols)
     counter_old = state.cluster_counter
-    cres: CompleteResult = associate_and_complete(
-        config, state, block.gcol0, block.n_cols, batch_cols)
+    cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols)
+    return finish_step(config, cres, block.gcol0, block.n_cols, counter_old, slab_cols,
+                       slab_head)
+
+
+def finish_step(config: Config, cres: CompleteResult, gcol0, n_cols, counter_old,
+                slab_cols: int, slab_head: int):
+    """The publish slab, join tables and packed meta of a step whose
+    association returned ``cres``; returns (state, StepInfo)."""
     state = cres.state
-    slab, slab_ext = _publish_slab(state, cres.fu_old, slab_cols, slab_head)
+    slab, slab_ext = _publish_slab(config, state, cres.fu_old, slab_cols, slab_head)
     meta = pack_meta(
-        block.gcol0, block.n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
+        gcol0, n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
         counter_old, state.reset_required, state.overflow, state.cc_failed,
         cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
     )
@@ -161,6 +175,18 @@ def pipeline_step(config: Config, state: RingState, batch: FiringBatch,
     ``batch_cols`` is the static column capacity of the step, normally
     ``F + slack``.  If more columns finish than fit, the surplus is deferred
     to the next step (the insertion frontier is rolled back accordingly)."""
+    state, gcol0, n_cols = insert_and_segment(config, state, batch, ego, batch_cols)
+    counter_old = state.cluster_counter
+    cres = associate_and_complete(config, state, gcol0, n_cols, batch_cols)
+    return finish_step(config, cres, gcol0, n_cols, counter_old, slab_cols, slab_head)
+
+
+def insert_and_segment(config: Config, state: RingState, batch: FiringBatch,
+                       ego: EgoCalibration, batch_cols: int):
+    """The part of ``pipeline_step`` before association: insert the firing
+    batch, clamp the finished columns to the step's capacity, derive each
+    column's trigger pose and the ego transform, and segment the ground.
+    Updates ``state`` in place; returns (state, gcol0, n_cols)."""
     F = batch.xyz.shape[0]
     B = batch_cols
     dev = state.device
@@ -199,13 +225,4 @@ def pipeline_step(config: Config, state: RingState, batch: FiringBatch,
         ego_trans=ego_trans, height_sensor_to_ground=ego.height_sensor_to_ground,
     )
     state = ground_segment_columns(config, state, seg_in, B)
-    counter_old = state.cluster_counter
-    cres: CompleteResult = associate_and_complete(config, state, gcol0, n_cols, B)
-    state = cres.state
-    slab, slab_ext = _publish_slab(state, cres.fu_old, slab_cols, slab_head)
-    meta = pack_meta(
-        gcol0, n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
-        counter_old, state.reset_required, state.overflow, state.cc_failed,
-        cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
-    )
-    return state, StepInfo(meta=meta, slab=slab, slab_ext=slab_ext)
+    return state, gcol0, n_cols

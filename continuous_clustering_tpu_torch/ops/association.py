@@ -1,29 +1,34 @@
 """Association, cluster combination and completion (port of
 ``continuous_clustering_tpu/ops/association.py``, the shipped schedule only).
 
-Per column batch:
+Per column batch, in three parts that ``associate_and_complete`` calls in
+order (the multi-sensor step calls them itself, so that the kernels run
+once for all its streams):
 
-1. gather the halo + batch window (R, WCOL = H + B) from the ring, with the
-   halo pre-merge of cells that already share a component (``L0``);
-2. wedge neighbour search -> forward edge bitmasks (kernel K1,
-   ``cc_cuda.edge_bits``);
-3. min-label connected components over the window (kernel K2,
-   ``cc_cuda.window_cc``): column-major label ids, segmented row scan from
-   round 0, column scan from round 1, no pointer jump, 64-round cap;
-4. label -> slot FastSV union with full path compression, new-slot
-   allocation, the aggregate fold, completion, the bounded ring clear and
-   the overflow checks, all at K scale.
+1. ``window_arrays``: gather the halo + batch window (R, WCOL = H + B) from
+   the ring, with the halo pre-merge of cells that already share a
+   component (``L0``);
+2. ``window_kernels``, once for any number of windows of one shape: wedge
+   neighbour search -> forward edge bitmasks (kernel K1,
+   ``cc_cuda.edge_bits_stacked``), then min-label connected components
+   over each window (kernel K2, ``cc_cuda.window_cc_stacked``):
+   column-major label ids, segmented row scan from round 0, column scan
+   from round 1, no pointer jump, 64-round cap;
+3. ``complete_association``: label -> slot FastSV union with full path
+   compression, new-slot allocation, the aggregate fold, completion, the
+   bounded ring clear and the overflow checks, all at K scale; with
+   ``record_neighbor_stats``, the visited-neighbour counter
+   (``neighbor_stats``).
 
 Every masked scatter routes its masked lanes to one padding entry past the
 end of the table (the JAX version drops out-of-bounds indices).  The FastSV
 loops test for convergence on the host: one sync per iteration.
-``record_neighbor_stats`` is not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +62,15 @@ class Window(NamedTuple):
     L0: torch.Tensor        # (R, WCOL) i32 initial labels (column-major ids)
     mad: torch.Tensor       # (R, B) f32 asin(max_d / dist)
     wp: torch.Tensor        # (R, B) i32 wedge width in columns
+
+
+class WindowCC(NamedTuple):
+    """K1's and K2's results for one window."""
+
+    bits: torch.Tensor       # (H+1, 2, R, B) i32 forward edge bitmasks
+    labels: torch.Tensor     # (R, WCOL) i32 component labels
+    converged: torch.Tensor  # () bool
+    rounds: torch.Tensor     # () i32
 
 
 def _scatter(table: torch.Tensor, idx: torch.Tensor, src: torch.Tensor, reduce: str,
@@ -135,27 +149,107 @@ def window_arrays(config: Config, state: RingState, gcol0, n_cols, B: int) -> Wi
     return Window(xw, yw, zw, incw, active_w, wcols, slot_h, L0, mad, wp)
 
 
+def window_kernels(config: Config, wins: Sequence[Window]) -> List[WindowCC]:
+    """K1, then K2, each launched once for all of ``wins`` (windows of one
+    shape, one per stream).  Nothing is read back to the host: each
+    window's widest wedge stays a device tensor."""
+    cl = config.clustering
+    H, V = cl.max_steps_in_row, cl.max_steps_in_column
+
+    def stack(name):
+        ts = [getattr(w, name) for w in wins]
+        return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+    active_w, wp = stack("active_w"), stack("wp")
+    max_d = np.float32(cl.max_distance)
+    bits = cc_cuda.edge_bits_stacked(stack("xw"), stack("yw"), stack("zw"), stack("incw"),
+                                     active_w, stack("mad"), wp, H=H, V=V,
+                                     max_d2=float(max_d * max_d))
+    max_wp = torch.where(active_w[:, :, H:], wp, 0).amax(dim=(1, 2)).to(I32)
+    labels, converged, rounds = cc_cuda.window_cc_stacked(bits, stack("L0"), max_wp, H=H, V=V)
+    return [WindowCC(bits[s], labels[s], converged[s], rounds[s]) for s in range(len(wins))]
+
+
+def _popcount(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each i32 word, as i64."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def neighbor_stats(config: Config, state: RingState, win: Window,
+                   bits: torch.Tensor) -> torch.Tensor:
+    """The ``record_neighbor_stats`` counters (R, B) i32 of the batch points,
+    0 for inactive ones: the low 16 bits count the cells the reference's
+    wedge walk visits (…cpp:725), the high 16 the edges found, which are
+    the set bits of K1's ``bits`` (the CC analog of the tree-child count).
+
+    The JAX package's XLA formulation (``ops/association.py:438-474``), one
+    column offset at a time: a cell is visited iff every cell strictly
+    earlier in its walk passed the inclination test (the breaking cell
+    itself counts) and its row is inside the window; the wedge spans
+    ``dc <= wp`` and columns at or past the publish frontier.  Exact for
+    ``stop_after_association_enabled=False`` (the reference's stop heuristic
+    visits a data-dependent subset)."""
+    cl = config.clustering
+    H, V = cl.max_steps_in_row, cl.max_steps_in_column
+    R, WCOL = win.incw.shape
+    B = WCOL - H
+    dev = win.incw.device
+    nan_rows = torch.full((V, WCOL), float("nan"), dtype=torch.float32, device=dev)
+    incp = torch.cat([nan_rows, win.incw, nan_rows])
+    incb = win.incw[:, H:]
+    k = torch.arange(1, V + 1, device=dev)[:, None, None]
+    r = torch.arange(R, device=dev)[None, :, None]
+    up_inb, dn_inb = r - k >= 0, r + k <= R - 1          # (V, R, 1)
+    fu0 = state.first_unpublished.clamp_min(0)
+    gcol_b = win.wcols[H:]
+
+    def exclusive_cumprod(seq):  # along the walk, 1 before its first step
+        c = torch.cumprod(seq.to(torch.int32), 0)
+        return torch.cat([torch.ones_like(c[:1]), c[:-1]])
+
+    visited = torch.zeros((R, B), dtype=torch.int32, device=dev)
+    for dc in range(H + 1):
+        # neighbours (r + dr, H + b - dc) for dr = -V..V: (2V + 1, R, B)
+        ninc = torch.stack([incp[j:j + R, H - dc:H - dc + B] for j in range(2 * V + 1)])
+        ok = ~(torch.abs(ninc - incb[None]) > win.mad[None])
+        s_up = torch.where(up_inb, exclusive_cumprod(torch.flip(ok[:V], [0])), 0).sum(0)
+        s_dn = torch.where(dn_inb, exclusive_cumprod(ok[V + 1:]), 0).sum(0)
+        per_dc = s_up if dc == 0 else 1 + ok[V].to(torch.int64) * s_up + s_dn
+        gate = (dc <= win.wp) & (gcol_b - dc >= fu0)[None, :]
+        visited += torch.where(gate, per_dc, 0).to(torch.int32)
+    degree = _popcount(bits).sum(dim=(0, 1))
+    return torch.where(win.active_w[:, H:], visited + (degree << 16), 0).to(I32)
+
+
 def associate_and_complete(config: Config, state: RingState, gcol0, n_cols,
                            batch_size: int) -> CompleteResult:
     """Association (CC update) and completion for one column batch; updates
     the ring and the state in place and returns the frontier results."""
+    win = window_arrays(config, state, gcol0, n_cols, batch_size)
+    cc, = window_kernels(config, [win])
+    return complete_association(config, state, gcol0, n_cols, batch_size, win, cc)
+
+
+def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_size: int,
+                         win: Window, cc: WindowCC) -> CompleteResult:
+    """Everything of association after the kernels, for the window ``win``
+    and its kernel results ``cc``; updates the ring and the state in place
+    and returns the frontier results."""
     cl = config.clustering
-    if cl.record_neighbor_stats:
-        raise NotImplementedError("record_neighbor_stats is not ported")
-    H, V, K = cl.max_steps_in_row, cl.max_steps_in_column, cl.max_active_components
+    H, K = cl.max_steps_in_row, cl.max_active_components
     R, rc, B = state.num_rows, state.ring_cols, batch_size
     dev = state.device
     num_cols = config.range_image.num_columns
     WCOL = H + B
     idxK = torch.arange(K, dtype=I32, device=dev)
-
-    win = window_arrays(config, state, gcol0, n_cols, B)
     active_b = win.active_w[:, H:]
-    max_d = np.float32(cl.max_distance)
-    bits = cc_cuda.edge_bits(win.xw, win.yw, win.zw, win.incw, win.active_w,
-                             win.mad, win.wp, H=H, V=V, max_d2=float(max_d * max_d))
-    max_wp = torch.where(active_b, win.wp, 0).max().reshape(1).to(I32)
-    Lw, cc_ok, cc_rounds = cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V)
+    Lw, cc_ok, cc_rounds = cc.labels, cc.converged, cc.rounds
+    # read before completion moves the publish frontier
+    nbr = neighbor_stats(config, state, win, cc.bits) if cl.record_neighbor_stats else None
 
     # ---- window labels -> component slots (id space = column-major) -------
     n_wc = R * WCOL
@@ -227,6 +321,8 @@ def associate_and_complete(config: Config, state: RingState, gcol0, n_cols,
     wmask = (torch.arange(B, device=dev) < n_cols)[None, :].expand(R, B)
     ring_put(state.slot, lc0b, wmask, cs_b2d)
     ring_put(state.finish_az, lc0b, wmask & active_b, finish_b)
+    if nbr is not None:
+        ring_put(state.nbr_stats, lc0b, wmask, nbr)
 
     # ---- fold demoted canonicals (an identity when nothing was demoted) ---
     demote = state.slot_valid & (slot_parent != idxK)

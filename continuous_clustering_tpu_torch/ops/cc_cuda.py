@@ -14,10 +14,16 @@ kernel source of the port (``csrc/*.cu``).
   the round count), the labels in global memory (no size limit but the
   card's memory).
 
+Both kernels take S windows of one shape stacked along a leading axis in one
+launch (``edge_bits_stacked``, ``window_cc_stacked``; the multi-sensor step
+launches each once for all its streams).  ``edge_bits`` and ``window_cc``
+are the S = 1 case of the same launch.
+
 The wrapper rule: a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain twin.  The twins are the JAX package's XLA formulations
 (``association._edge_bits`` XLA branch, ``_window_cc_vectorized`` with the
-shipped scan schedule).  ``LAUNCHES`` counts kernel launches only.
+shipped scan schedule), one window each; the stacked twins loop them over
+the windows.  ``LAUNCHES`` counts kernel launches only.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 ``continuous_clustering_tpu_torch/build/`` (plain C interface, ctypes), one
@@ -42,6 +48,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 # the fixpoint's round cap (a hit with labels still changing is cc_failed)
 MAX_ROUNDS = 64
+# windows one K2 launch takes (its change masks are one 32-bit word)
+MAX_STACKED_WINDOWS = 32
 
 LAUNCHES = {"edge_bits": 0, "window_cc": 0}
 _KLIB: Optional[ctypes.CDLL] = None
@@ -89,9 +97,9 @@ def load_kernels() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cct_edge_bits.restype = ctypes.c_int
-        lib.cct_edge_bits.argtypes = [p] * 8 + [i, i, i, i, f, p]
+        lib.cct_edge_bits.argtypes = [p] * 8 + [i] * 5 + [f, p]
         lib.cct_window_cc.restype = ctypes.c_int
-        lib.cct_window_cc.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.cct_window_cc.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.cct_sweep_probe.restype = ctypes.c_int
         lib.cct_sweep_probe.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
         _KLIB = lib
@@ -125,29 +133,39 @@ def edge_bits(xw, yw, zw, incw, active_w, mad, wp, *, H: int, V: int,
 
     xw, yw, zw, incw (R, H+B) f32; active_w (R, H+B) bool; mad (R, B) f32;
     wp (R, B) i32.  ``max_d2`` is the f32 square of the clustering radius."""
+    args = (xw, yw, zw, incw, active_w, mad, wp)
+    return edge_bits_stacked(*(a[None] for a in args), H=H, V=V, max_d2=max_d2)[0]
+
+
+def edge_bits_stacked(xw, yw, zw, incw, active_w, mad, wp, *, H: int, V: int,
+                      max_d2: float) -> torch.Tensor:
+    """``edge_bits`` of S windows in one launch: (S, R, H+B) windows and
+    (S, R, B) ``mad``/``wp`` -> (S, H+1, 2, R, B) bits."""
     if xw.device.type == "cpu":
-        return edge_bits_reference(xw, yw, zw, incw, active_w, mad, wp,
-                                   H=H, V=V, max_d2=max_d2)
+        return torch.stack([edge_bits_reference(*win, H=H, V=V, max_d2=max_d2)
+                            for win in zip(xw, yw, zw, incw, active_w, mad, wp)])
     if xw.device.type != "cuda":
         raise ValueError(f"edge_bits: unsupported device {xw.device}")
-    R, WCOL = xw.shape
+    S, R, WCOL = xw.shape
     B = WCOL - H
     if 2 * V + 1 > 64:
         raise ValueError("edge_bits packs 2V+1 row offsets into two words: V <= 31")
+    if S < 1:
+        raise ValueError("edge_bits: no window")
     dev = xw.device
     for name, t in (("xw", xw), ("yw", yw), ("zw", zw), ("incw", incw)):
-        check_tensor(t, name, torch.float32, (R, WCOL), dev)
-    check_tensor(active_w, "active_w", torch.bool, (R, WCOL), dev)
-    check_tensor(mad, "mad", torch.float32, (R, B), dev)
-    check_tensor(wp, "wp", torch.int32, (R, B), dev)
-    bits = torch.empty((H + 1, 2, R, B), dtype=torch.int32, device=dev)
+        check_tensor(t, name, torch.float32, (S, R, WCOL), dev)
+    check_tensor(active_w, "active_w", torch.bool, (S, R, WCOL), dev)
+    check_tensor(mad, "mad", torch.float32, (S, R, B), dev)
+    check_tensor(wp, "wp", torch.int32, (S, R, B), dev)
+    bits = torch.empty((S, H + 1, 2, R, B), dtype=torch.int32, device=dev)
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cct_edge_bits(
             xw.data_ptr(), yw.data_ptr(), zw.data_ptr(), incw.data_ptr(),
             active_w.data_ptr(), mad.data_ptr(), wp.data_ptr(), bits.data_ptr(),
-            R, B, H, V, max_d2, stream)
+            S, R, B, H, V, max_d2, stream)
     raise_on_error(err, "edge_bits")
     LAUNCHES["edge_bits"] += 1
     return bits
@@ -213,31 +231,47 @@ def window_cc(bits, L0, max_wp, *, H: int, V: int
     """Min-label fixpoint over the window graph of ``bits``, seeded by
     ``L0`` (R, H+B) i32; ``max_wp`` (1,) i32 bounds the column offsets.
     Returns (labels (R, H+B) i32, converged () bool, rounds () i32)."""
+    labels, converged, rounds = window_cc_stacked(bits[None], L0[None], max_wp, H=H, V=V)
+    return labels[0], converged[0], rounds[0]
+
+
+def window_cc_stacked(bits, L0, max_wp, *, H: int, V: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``window_cc`` of S windows in one launch: (S, H+1, 2, R, B) bits,
+    (S, R, H+B) ``L0`` and (S,) ``max_wp`` -> labels (S, R, H+B) i32,
+    converged (S,) bool and rounds (S,) i32, each window's own (a window
+    that has converged takes no further rounds).  Nothing is read back to
+    the host."""
     if L0.device.type == "cpu":
-        return window_cc_reference(bits, L0, max_wp, H=H, V=V)
+        outs = [window_cc_reference(b, l0, m, H=H, V=V)
+                for b, l0, m in zip(bits, L0, max_wp.reshape(-1, 1))]
+        return tuple(torch.stack(xs) for xs in zip(*outs))
     if L0.device.type != "cuda":
         raise ValueError(f"window_cc: unsupported device {L0.device}")
-    R, WCOL = L0.shape
+    S, R, WCOL = L0.shape
     B = WCOL - H
+    if not 1 <= S <= MAX_STACKED_WINDOWS:
+        raise ValueError(f"window_cc takes 1 to {MAX_STACKED_WINDOWS} windows, got {S}")
     dev = L0.device
-    check_tensor(bits, "bits", torch.int32, (H + 1, 2, R, B), dev)
-    check_tensor(L0, "L0", torch.int32, (R, WCOL), dev)
-    check_tensor(max_wp, "max_wp", torch.int32, (1,), dev)
+    check_tensor(bits, "bits", torch.int32, (S, H + 1, 2, R, B), dev)
+    check_tensor(L0, "L0", torch.int32, (S, R, WCOL), dev)
+    check_tensor(max_wp, "max_wp", torch.int32, (S,), dev)
     # one allocation: the labels, the previous round's labels, and the flags
-    # (converged, rounds, the kernel's two change words); converged is read
-    # as a bool view of its word's first byte, so no further kernel runs
-    n = R * WCOL
-    buf = torch.empty((2 * n + 4,), dtype=torch.int32, device=dev)
+    # (converged and rounds per window, the kernel's change words per window
+    # and round parity); converged is read as a bool view of its words'
+    # first bytes, so no further kernel runs
+    n = S * R * WCOL
+    buf = torch.empty((2 * n + 4 * S,), dtype=torch.int32, device=dev)
     ptr = buf.data_ptr()
     lib = load_kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cct_window_cc(bits.data_ptr(), L0.data_ptr(), max_wp.data_ptr(),
-                                ptr, ptr + 4 * n, ptr + 8 * n, R, B, H, V, MAX_ROUNDS, stream)
+                                ptr, ptr + 4 * n, ptr + 8 * n, S, R, B, H, V, MAX_ROUNDS, stream)
     raise_on_error(err, "window_cc")
     LAUNCHES["window_cc"] += 1
     flags = buf[2 * n:]
-    return buf[:n].view(R, WCOL), flags[:1].view(torch.bool)[0], flags[1]
+    return buf[:n].view(S, R, WCOL), flags[:S].view(torch.bool)[::4], flags[S:2 * S]
 
 
 def _seg_min_scan(L: torch.Tensor, start: torch.Tensor, dim: int) -> torch.Tensor:

@@ -44,6 +44,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -64,6 +65,44 @@ class FiringBatch(NamedTuple):
     intensity: torch.Tensor     # (F, R) i32
     firing_index: torch.Tensor  # (F,) i32
     valid: torch.Tensor         # (F,) bool, padding mask
+
+
+def make_firing_batch(firings, poses, size: int, num_rows: int, device) -> FiringBatch:
+    """The firing batch of ``firings`` (point-cloud dicts: ``xyz`` and, where
+    present, ``stamp``, ``uidx``, ``intensity``, ``firing_index``) with their
+    ``odom_from_sensor`` ``poses`` (4, 4), on ``device``, padded to ``size``
+    firings; padding firings are invalid and carry the identity pose."""
+    F, R = size, num_rows
+    xyz = np.full((F, R, 3), np.nan, np.float32)
+    stamp = np.zeros((F, R), np.uint64)
+    uidx = np.full((F, R), np.iinfo(np.uint64).max, np.uint64)
+    inten = np.zeros((F, R), np.int32)
+    fidx = np.zeros((F,), np.int32)
+    pose_arr = np.tile(np.eye(4)[:3], (F, 1, 1)).astype(np.float32)
+    for i, (f, pose) in enumerate(zip(firings, poses)):
+        xyz[i] = f["xyz"]
+        if "stamp" in f:
+            stamp[i] = f["stamp"]
+        if "uidx" in f:
+            uidx[i] = f["uidx"]
+        if "intensity" in f:
+            inten[i] = f["intensity"]
+        fidx[i] = f.get("firing_index", 0)
+        pose_arr[i] = pose[:3, :]
+
+    def u32(a):
+        return (a & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return FiringBatch(
+        xyz=put(xyz), pose=put(pose_arr),
+        stamp_lo=put(u32(stamp)), stamp_hi=put(u32(stamp >> np.uint64(32))),
+        uidx_lo=put(u32(uidx)), uidx_hi=put(u32(uidx >> np.uint64(32))),
+        intensity=put(inten), firing_index=put(fidx),
+        valid=put(np.arange(F) < len(firings)),
+    )
 
 
 class InsertResult(NamedTuple):

@@ -3,8 +3,9 @@
 All publish fields of a column range ride ONE (n_rows, R, W) i32 slab, in
 the v3 layout that ``native/src/readout.cpp`` reads: f32 and u32 planes
 reinterpreted as i32, the four byte-range fields packed into one ``pk8``
-row, ``gcol`` derived on the host.  The cluster-id join uses the (2, K)
-``join_tables``.
+row, ``gcol`` derived on the host.  The ``nbr_stats`` row trails only when
+``record_neighbor_stats`` is on: consumers key on the row count.  The
+cluster-id join uses the (2, K) ``join_tables``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ FETCH_F32 = ("x", "y", "z", "distance", "azimuth", "inclination",
              "cont_az", "finish_az")
 FETCH_U32 = ("stamp_lo", "stamp_hi", "uidx_lo", "uidx_hi")
 FETCH_ORDER = FETCH_F32 + FETCH_U32 + ("pk8", "firing_index", "slot")
-N_SLAB_ROWS = len(FETCH_ORDER)
+N_SLAB_ROWS = len(FETCH_ORDER)            # without the optional nbr_stats row
+
+
+def slab_rows(with_nbr: bool) -> int:
+    return N_SLAB_ROWS + 1 if with_nbr else N_SLAB_ROWS
 
 
 def join_tables(state: RingState) -> torch.Tensor:
@@ -33,9 +38,10 @@ def _as_i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32)
 
 
-def packed_readout(state: RingState, lc0, width: int) -> torch.Tensor:
+def packed_readout(state: RingState, lc0, width: int, with_nbr: bool = False) -> torch.Tensor:
     """``width`` ring columns from local column ``lc0`` as a packed
-    (N_SLAB_ROWS, R, width) i32 slab (a copy, never a view of the ring)."""
+    (slab_rows(with_nbr), R, width) i32 slab (a copy, never a view of the
+    ring)."""
     idx = ring_index(lc0, width, state.ring_cols, state.device)
 
     def col(name):
@@ -46,7 +52,10 @@ def packed_readout(state: RingState, lc0, width: int) -> torch.Tensor:
            | ((col("ground_label") & 0xFF) << 8)
            | ((col("debug_label") & 0xFF) << 16)
            | (col("is_ignored") << 24))
-    return torch.cat([raw, pk8[None], col("firing_index")[None], col("slot")[None]])
+    rows = [raw, pk8[None], col("firing_index")[None], col("slot")[None]]
+    if with_nbr:
+        rows.append(col("nbr_stats")[None])
+    return torch.cat(rows)
 
 
 def unpack_slab(slab: np.ndarray, off: int, n: int, from_gcol: int, tabs: np.ndarray):
@@ -69,7 +78,8 @@ def unpack_slab(slab: np.ndarray, off: int, n: int, from_gcol: int, tabs: np.nda
     out["slot"] = slot
     out["cell_cid"] = np.where(has, tabs[0][slot0], 0)
     out["cell_rep"] = np.where(has, tabs[1][slot0], -1)
-    out["nbr_stats"] = np.zeros_like(pk8)
+    out["nbr_stats"] = (np.ascontiguousarray(slab[base + 3, :, off:off + n])
+                        if slab.shape[0] > N_SLAB_ROWS else np.zeros_like(pk8))
     # gcol is not transmitted: ingest writes the column index for every cell
     # holding data and -1 for NaN-distance cells
     gcols = from_gcol + np.arange(n, dtype=np.int64)[None, :]

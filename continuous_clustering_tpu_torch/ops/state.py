@@ -52,7 +52,10 @@ class RingState:
     # association
     slot: torch.Tensor           # i32 component-table index, -1 = none
     finish_az: torch.Tensor      # f32
-    nbr_stats: torch.Tensor      # i32 (record_neighbor_stats is not ported)
+    # profiling counters, written when clustering.record_neighbor_stats:
+    # low 16 bits the visited-neighbour count (reference …cpp:725), high 16
+    # the edges found (ops/association.py::neighbor_stats)
+    nbr_stats: torch.Tensor      # i32
     # component table, shape (K,)
     slot_parent: torch.Tensor
     slot_live: torch.Tensor

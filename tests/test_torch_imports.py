@@ -40,7 +40,8 @@ def port_sources():
 def test_every_port_module_imports_without_jax():
     mods = port_modules()
     for m in ("ops.cc_cuda", "ops.insertion", "ops.oracle", "models.checkpoint",
-              "models.throughput", "tools.bench_setup", "config", "evaluation.synthetic"):
+              "models.throughput", "tools.bench_setup", "config", "evaluation.synthetic",
+              "parallel.multi_sensor", "utils.cli", "tools.multi_sensor_demo"):
         assert f"continuous_clustering_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -11,6 +11,9 @@ real association windows of two synthetic streams at 32 x 220, batch 48
 (a KITTI-like scene and the throughput runs' ``near_field`` scene), and
 the synthetic windows of ``tools/cc_windows.py``: dense random edge words,
 one at R = 128, B = 512, and a snake that runs into the round cap.  The
+stacked launches (several windows in one launch, as the multi-sensor step
+makes them) must equal each window's own launch and twin, the round counts
+of windows that converge after different numbers of rounds included.  The
 probe variants run on their own inputs.  Tolerance: bits, labels, the
 converged flag, the round count and the probe outputs exact.
 """
@@ -142,6 +145,53 @@ def test_window_cc_kernel_matches_plain_on_synthetic_windows(case):
         bits, L0, max_wp = cc_windows.random_window(
             R, B, H, V, density=0.01 if kind == "dense" else 0.002, seed=int(seed))
     _window_cc_check(bits.cuda(), L0.cuda(), max_wp.cuda(), H, V, converged=case != "snake")
+
+
+def test_stacked_edge_bits_match_each_window(window, near_field_window):
+    """One K1 launch over the KITTI-like and the near-field window."""
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+
+    cfg, win = window
+    cl = cfg.clustering
+    md = np.float32(cl.max_distance)
+    kw = dict(H=cl.max_steps_in_row, V=cl.max_steps_in_column, max_d2=float(md * md))
+    wins = (win, near_field_window[1])
+    fields = ("xw", "yw", "zw", "incw", "active_w", "mad", "wp")
+    before = cc_cuda.LAUNCHES["edge_bits"]
+    bits = cc_cuda.edge_bits_stacked(*(torch.stack([getattr(w, f) for w in wins])
+                                       for f in fields), **kw)
+    assert cc_cuda.LAUNCHES["edge_bits"] == before + 1
+    for s, w in enumerate(wins):
+        assert torch.equal(bits[s], _edge_bits_check(cfg, w))
+
+
+def test_stacked_window_cc_matches_each_window():
+    """One K2 launch over windows that stop after different numbers of
+    rounds (the snake unconverged at the cap): each window's labels,
+    converged flag and round count are its own launch's and its twin's."""
+    _card()
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.tools import cc_windows
+
+    H = V = 20
+    wins = [cc_windows.random_window(64, 416, H, V, seed=0),
+            cc_windows.snake_window(64, 416, H, V),
+            cc_windows.random_window(64, 416, H, V, density=0.01, seed=2)]
+    bits, L0, max_wp = (torch.cat([w[i][None] if i < 2 else w[i] for w in wins]).cuda()
+                        for i in range(3))
+    before = cc_cuda.LAUNCHES["window_cc"]
+    L, ok, rounds = cc_cuda.window_cc_stacked(bits, L0, max_wp, H=H, V=V)
+    assert cc_cuda.LAUNCHES["window_cc"] == before + 1
+    torch.cuda.synchronize()
+    assert ok.tolist() == [True, False, True] and rounds[1] == cc_cuda.MAX_ROUNDS
+    assert len(set(rounds.tolist())) == 3
+    for s in range(len(wins)):
+        L1, ok1, r1 = cc_cuda.window_cc(bits[s], L0[s], max_wp[s:s + 1], H=H, V=V)
+        L_ref, ok_ref, r_ref = cc_cuda.window_cc_reference(bits[s], L0[s], max_wp[s:s + 1],
+                                                           H=H, V=V)
+        assert torch.equal(L[s], L1) and torch.equal(L[s], L_ref)
+        assert bool(ok[s]) == bool(ok1) == bool(ok_ref)
+        assert int(rounds[s]) == int(r1) == int(r_ref)
 
 
 @pytest.mark.parametrize("upper", [1, 7, 21])

@@ -12,8 +12,10 @@ set-up (``tools/bench_setup.py``) on the CPU.
   arcsin, as in ``tests/test_torch_step.py``), and the per-step meta equal.
   The port runs them as two calls (3 + 1 revolutions) that continue one
   stream; the JAX runner as one.  A port stream split on the rebase
-  revolution itself (2 + 2) equals the unsplit one too; the JAX runner
-  skips that rebase.
+  revolution itself (2 + 2) equals the unsplit one too, and equals the JAX
+  runner's uninterrupted run; the JAX runner's own continuation from that
+  revolution skips the rebase (its origin ends one rebase short), so the
+  two runners differ there by the JAX continuation, not by the port.
 * ``measure_periodic_rate`` and ``measure_single_rate`` run their
   schedules on a small stream and keep the stream valid; the rates they
   return on the CPU are not device figures and are not checked.
@@ -115,7 +117,13 @@ def to_jax(blocks, seg_poses):
     return JaxColumnBlock(**kw), JaxSegPoses(*[jnp.asarray(t.numpy()) for t in seg_poses])
 
 
-def test_periodic_runner_matches_jax_across_rebase():
+REVS, EVERY = 4, 2  # revolutions of the periodic runs, rebase every EVERY
+
+
+@pytest.fixture(scope="module")
+def periodic_runs():
+    """The captured revolution, the JAX runner's uninterrupted run over
+    ``REVS`` revolutions (k0 = 0), and the port's runner over a split."""
     needs_gxx()
     jcfg = small_config().replace(range_image=dataclasses.replace(
         small_config().range_image, num_columns=NUM_COLS, ring_buffer_revolutions=4))
@@ -129,33 +137,60 @@ def test_periodic_runner_matches_jax_across_rebase():
     blocks0, segp0, per_rev, hsg = bench_setup.capture_revolution(pipe, firings, NUM_COLS)
     assert per_rev >= 2
     jblocks0, jsegp0 = to_jax(blocks0, segp0)
-    revs, every = 4, 2
-    jr = jax.jit(jax_periodic_runner(jcfg, pipe._batch_B, NUM_COLS, revs * per_rev,
-                                     reduce_infos=False, rebase_every=every))
-    js, jinfos = jr(jax_init(jcfg, NUM_ROWS), jblocks0, jsegp0,
-                    jnp.asarray(np.float32(hsg)), jnp.int32(0))
+
+    def jax_stream(split):
+        js, k0, metas = jax_init(jcfg, NUM_ROWS), 0, []
+        for n in split:
+            jr = jax.jit(jax_periodic_runner(jcfg, pipe._batch_B, NUM_COLS, n * per_rev,
+                                             reduce_infos=False, rebase_every=EVERY))
+            js, jinfos = jr(js, jblocks0, jsegp0, jnp.asarray(np.float32(hsg)), jnp.int32(k0))
+            metas.append(np.asarray(jinfos.meta))
+            k0 += n * per_rev
+        return js, np.concatenate(metas)
 
     def port_stream(split):
         state, k0, metas = init_state(cfg, NUM_ROWS, "cpu"), 0, []
         for n in split:
             run = make_periodic_block_scan_runner(cfg, pipe._batch_B, NUM_COLS, n * per_rev,
-                                                  reduce_infos=False, rebase_every=every)
+                                                  reduce_infos=False, rebase_every=EVERY)
             state, infos = run(state, blocks0, segp0, hsg, k0)
             metas.append(infos.meta)
             k0 += n * per_rev
         return state, torch.cat(metas)
 
+    return jax_stream((REVS,)), port_stream, jax_stream
+
+
+def test_periodic_runner_matches_jax_across_rebase(periodic_runs):
+    (js, jmeta), port_stream, _ = periodic_runs
     ts, tmeta = port_stream((3, 1))
-    np.testing.assert_array_equal(tmeta.numpy(), np.asarray(jinfos.meta))
+    np.testing.assert_array_equal(tmeta.numpy(), jmeta)
     assert_states_equal(jax_state_numpy(js), state_to_numpy(ts), "after 4 revolutions")
-    assert int(ts.origin_rot) == every and int(tmeta[:, 4].sum()) > 0
+    assert int(ts.origin_rot) == EVERY and int(tmeta[:, 4].sum()) > 0
     assert not bool(ts.overflow) and not bool(ts.cc_failed)
-    assert (revs - 2) * NUM_COLS < int(ts.first_unpublished) <= revs * NUM_COLS
+    assert (REVS - 2) * NUM_COLS < int(ts.first_unpublished) <= REVS * NUM_COLS
 
     ts2, tmeta2 = port_stream((2, 2))
     assert torch.equal(tmeta2, tmeta)
     for name, a in state_to_numpy(ts2).items():
         np.testing.assert_array_equal(a, state_to_numpy(ts)[name], err_msg=name)
+
+
+def test_periodic_runner_split_on_a_rebase_revolution(periodic_runs):
+    """A stream split exactly on the rebase revolution (2 + 2, rebase every
+    2): the port's continuation equals the JAX runner's uninterrupted run
+    (k0 = 0), every step's meta and every state field.  The JAX runner's own
+    continuation from k0 = 2 revolutions starts from the shift as of that
+    step and so skips the rebase: its origin stays a rebase behind the
+    uninterrupted run's, which the port's does not."""
+    (js, jmeta), port_stream, jax_stream = periodic_runs
+    ts, tmeta = port_stream((2, 2))
+    np.testing.assert_array_equal(tmeta.numpy(), jmeta)
+    assert_states_equal(jax_state_numpy(js), state_to_numpy(ts), "split 2 + 2")
+    assert int(ts.origin_rot) == int(js.origin_rot) == EVERY
+
+    js_split, _ = jax_stream((2, 2))
+    assert int(js_split.origin_rot) == int(js.origin_rot) - EVERY
 
 
 def test_measure_periodic_rate_keeps_the_stream_valid():
