@@ -40,13 +40,23 @@ side by side), then:
    (``parallel/multi_sensor.py``, K1 and K2 launched once per step for all
    streams), times it, counts one step's device kernels under the
    profiler, and holds every stream's published partition, meta and state
-   against the same stream run alone through ``pipeline_step`` on the card.
+   against the same stream run alone through ``pipeline_step`` on the card;
+10. drives the sensor entry point (``launch.py`` -> ``ClusteringNode``) on
+    the card from raw packets encoded here from a ray-cast scene
+    (``tools/sensor_packets.py``): the VLS-128 roof preset at its full
+    width (128 x 1700, decode thread, asynchronous, ring of 10 revolutions)
+    and both OS-32 presets (32 x 1024, fog filtering on; their sensor_info
+    written to a temporary directory), 2 revolutions each, the reference's
+    three-node ``demo_touareg``; each holds its published partition and
+    clusters against the same packets through the same preset on the CPU;
+    then runs ``tools/latency_bench.py`` on the card (64 x 2200, batch 128,
+    600 rpm pacing, 2 revolutions) and prints its percentiles.
 
-Phases 3 to 9 drive the port's paths; the kernels' launch counters are set
-to 0 just before each and read just after, and each of phases 3-7 and 9
+Phases 3 to 10 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each of phases 3-7, 9 and 10
 must have launched K1 and K2 (phase 9 once per step), phase 8 the probe
 kernel.  Every phase raises on failure.  The line before the last is a JSON
-object with one entry per kernel (launches summed over phases 3-9;
+object with one entry per kernel (launches summed over phases 3-10;
 ``max_abs_err`` over every
 comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
 without; K1 and K2 on the KITTI window, the probe's slowest variant at
@@ -732,6 +742,10 @@ def main() -> int:
     # ---- phase 9: three sensor streams in one step ---------------------------
     multi_stream_phase(cfg, dev, launches, card, phase5)
 
+    # ---- phase 10: the sensor entry point, from raw packets -------------------
+    for name, err in node_phase(dev, launches, card).items():
+        max_err[name] = max(max_err[name], err)
+
     # ms: CUDA events around the launch as the host issues it, the host's
     # enqueue included; device_ms: the device's time alone
     kit, pt = k2["kitti"], probe_t[slowest]
@@ -938,6 +952,151 @@ def multi_stream_phase(cfg, dev, launches, card, phase5, n_streams=3, n_rev=2):
           f"per stream step; phase 5 (one stream, facade): {phase5['pts_s']:.0f} points/s, "
           f"{phase5['ms_step']:.2f} ms/step; every stream's meta and state equal its run "
           f"alone, published partition agreement {agree}")
+
+
+def run_node(desc, packets, device):
+    """Feed ``packets`` to the node of launch description ``desc`` on
+    ``device``; returns (cluster id by (column, row) of every published
+    instance column, (size, stamp) of every published cluster, node, wall
+    seconds)."""
+    import torch
+
+    from continuous_clustering_tpu_torch import launch
+    from continuous_clustering_tpu_torch.tools.sensor_packets import feed
+
+    node = launch.make_node(desc, device=device)
+    labels, clusters = {}, []
+
+    def on_instance(cloud):
+        ok = np.isfinite(cloud["x"])
+        labels.update(zip(zip(cloud["global_column_index"][ok].tolist(),
+                              cloud["row_index"][ok].tolist()), cloud["id"][ok].tolist()))
+
+    node.publish_instance_columns = on_instance
+    node.publish_cluster = lambda pts, stamp: clusters.append((len(pts), int(stamp)))
+    t0 = time.perf_counter()
+    feed(node, packets)
+    if node.device.type == "cuda":
+        torch.cuda.synchronize()
+    return labels, clusters, node, time.perf_counter() - t0
+
+
+def check_node_window(pipe, card):
+    """K1 and K2 against their twins, and timed, on the last association
+    window of a node's stream (its rows and step width); returns max
+    |kernel - twin| per kernel."""
+    import torch
+
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.ops.association import window_arrays
+
+    cfg, state, B = pipe._config, pipe.state, pipe._batch_B
+    H, V = cfg.clustering.max_steps_in_row, cfg.clustering.max_steps_in_column
+    win = window_arrays(cfg, state, state.first_unfinished - B,
+                        torch.tensor(B, dtype=torch.int32, device=state.x.device), B)
+    max_d = np.float32(cfg.clustering.max_distance)
+    kw = dict(H=H, V=V, max_d2=float(max_d * max_d))
+    args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
+    bits, bits_ref = cc_cuda.edge_bits(*args, **kw), cc_cuda.edge_bits_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = {"edge_bits": max_abs_diff(bits, bits_ref)}
+    check(torch.equal(bits, bits_ref), f"node window: K1 bits differ (max |diff| {err})")
+    max_wp = torch.where(win.active_w[:, H:], win.wp, 0).max().reshape(1).to(torch.int32)
+    rounds, err["window_cc"] = check_window_cc("node window", bits, win.L0, max_wp, H, V, True)
+    k1 = median_ms(lambda: cc_cuda.edge_bits(*args, **kw), device_only=True)
+    k2 = median_ms(lambda: cc_cuda.window_cc(bits, win.L0, max_wp, H=H, V=V), device_only=True)
+    b = kernel_bounds(win, bits, max_wp, rounds, H, V)
+    print(f"phase 10: {card}: the node's last window R={win.active_w.shape[0]} "
+          f"WCOL={win.active_w.shape[1]}, {int(win.active_w.sum())} active cells: K1 bits equal, "
+          f"{k1:.4f} ms device, bound {b['edge_bits']['bound_ms']:.6f} ms "
+          f"({b['edge_bits']['bound_by']}); K2 labels, converged and rounds ({rounds}) equal, "
+          f"{k2:.4f} ms device, bound {b['window_cc']['bound_ms']:.6f} ms "
+          f"({b['window_cc']['bound_by']})")
+    return err
+
+
+def node_phase(dev, launches, card, n_rev=2):
+    """Phase 10: the roof VLS-128 and both OS-32 presets from raw packets
+    on the card against the CPU, then the latency bench on the card.
+    Returns max |kernel - twin| per kernel of the node windows' checks."""
+    import tempfile
+
+    from continuous_clustering_tpu_torch import launch
+    from continuous_clustering_tpu_torch.evaluation.partition import partition_agreement
+    from continuous_clustering_tpu_torch.tools import latency_bench
+    from continuous_clustering_tpu_torch.tools import sensor_packets as sp
+
+    t_phase = time.perf_counter()
+    max_err = {"edge_bits": 0, "window_cc": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        info = sp.os32_sensor_info()
+        meta = Path(tmp) / "os32_sensor_info.json"
+        meta.write_text(json.dumps(info))
+        descs = launch.demo_touareg(os32_metadata=str(meta))
+        check([d.name for d in descs] == ["vls128_roof", "os32_left", "os32_right"],
+              f"demo_touareg: {[d.name for d in descs]}")
+        os32_inc = np.deg2rad(np.asarray(info["beam_altitude_angles"]))
+        for k, desc in enumerate(descs):
+            cols = desc.config.range_image.num_columns
+            if desc.sensor_manufacturer == "velodyne":
+                rows = desc.sensor_kwargs["num_lasers"]
+                frames = sp.scene_frames(rows, cols, n_rev, sp.velodyne_inclinations(rows),
+                                         seed=7, num_boxes=16)
+                packets = sp.velodyne_packets(frames)
+            else:
+                rows = info["data_format"]["pixels_per_column"]
+                frames = sp.scene_frames(rows, cols, n_rev, os32_inc, seed=8 + k, num_boxes=12,
+                                         spread=20.0)
+                packets = sp.ouster_legacy_packets(frames, info)
+            points = sum(int(np.isfinite(f[:, :, 0]).sum()) for f in frames)
+            launches.start()
+            labels, clusters, node, dt = run_node(desc, packets, dev)
+            got = launches.stop(f"phase 10 {desc.name}")
+            pipe = node.clustering
+            check(node.sensor_input.pending_packets() == 0,
+                  f"{desc.name}: packets left in the decode queue after flush")
+            check(not desc.config.general.is_single_threaded and
+                  node.sensor_input._offload is not None,
+                  f"{desc.name}: the preset runs asynchronous with a decode thread")
+            ring_mb = sum(t.numel() * t.element_size() for t in vars(pipe.state).values()) / 1e6
+            facade = pipe.stats.summary().get("device_step", {"count": 0, "total_s": 0.0})
+            t_cpu = time.perf_counter()
+            cpu_labels, cpu_clusters, _, _ = run_node(desc, packets, "cpu")
+            t_cpu = time.perf_counter() - t_cpu
+            check(len(cpu_labels) > 5000 and labels.keys() == cpu_labels.keys(),
+                  f"{desc.name}: {len(labels)} points published on the card, "
+                  f"{len(cpu_labels)} on the CPU")
+            agree = partition_agreement(cpu_labels, labels)
+            check(agree == 1.0, f"{desc.name}: card vs CPU partition agreement {agree}")
+            check(clusters == cpu_clusters and len(clusters) > 0,
+                  f"{desc.name}: {len(clusters)} clusters on the card, {len(cpu_clusters)} "
+                  "on the CPU, or their sizes or stamps differ")
+            print(f"phase 10: {card}: {desc.name} ({desc.sensor_manufacturer}, {rows} x {cols}, "
+                  f"{len(packets)} packets of {n_rev} revolutions, decode thread, async, "
+                  f"{ring_mb:.0f} MB of ring state): {dt / n_rev * 1e3:.2f} ms per revolution, "
+                  f"{points / dt:.0f} points/s, {facade['count']} batches taking "
+                  f"{facade['total_s']:.3f} s in the facade (host insertion, the step, the "
+                  f"previous step's meta read) of {dt:.3f} s; {len(clusters)} clusters; "
+                  f"launches {got}; CPU leg "
+                  f"({t_cpu:.1f} s): partition agreement {agree} on {len(labels)} points, "
+                  "clusters and stamps equal")
+            if desc.sensor_manufacturer == "velodyne":
+                for name, err in check_node_window(pipe, card).items():
+                    max_err[name] = max(max_err[name], err)
+    launches.start()
+    lat = latency_bench.main(["--device", "cuda", "--revolutions", "2"])
+    got = launches.stop("phase 10 latency bench")
+    check(lat["clusters"] > 0, "the latency bench published no cluster")
+    print(f"phase 10: {card}: latency bench ({lat['rows']} x {lat['columns']}, batch "
+          f"{lat['batch']}, {lat['columns_per_second']:.0f} columns/s, 2 revolutions): publish "
+          f"latency p50 {lat['p50_ms']:.2f} / p95 {lat['p95_ms']:.2f} / p99 "
+          f"{lat['p99_ms']:.2f} ms (from the pacing, backlog included: p50 "
+          f"{lat['schedule_p50_ms']:.2f} / p95 {lat['schedule_p95_ms']:.2f} / p99 "
+          f"{lat['schedule_p99_ms']:.2f} ms), {lat['deadline_misses']} deadline misses, "
+          f"{lat['clusters']} clusters; streamed in {lat['stream_s']:.3f} s for "
+          f"{lat['real_time_s']:.3f} s of sensor time; launches {got}")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all")
+    return max_err
 
 
 def serpentine_firings():

@@ -11,9 +11,15 @@ package mirrors its layout so each module's counterpart is easy to find:
 * ``models``     — ``pipeline_step`` and ``pipeline_step_block``, host
                    insertion, the streaming ``ContinuousClustering`` facade,
                    checkpoint/resume and the scan runners
-* ``io``         — point-cloud schemas and native slab -> cloud assembly
+* ``io``         — point-cloud schemas, native slab -> cloud assembly, the
+                   middleware-free ``ClusteringNode`` with its transform
+                   synchronizer and publish messages, the ROS1 bag reader
+* ``sensors``    — Velodyne and Ouster packet decoders (native, or their
+                   NumPy twins when asked) and the generic points input
+* ``launch``     — the reference's vehicle, sensor and demo presets
 * ``evaluation`` — synthetic scenes and partition comparison
-* ``tools``      — throughput measurement set-up (``bench_setup``)
+* ``tools``      — throughput measurement set-up (``bench_setup``), the
+                   multi-sensor demo, rosbag replay, the latency bench
 * ``native``     — builds and loads the C++ host library from ``csrc/host``
 * ``convert``    — JAX-state <-> port-state and config conversion through numpy
 

@@ -39,6 +39,7 @@ from ..ops.ingest import N_BLOCK_FIELDS, N_BLOCK_SCALARS, N_MERGED_PLANES, split
 from ..ops.insertion import FiringBatch, make_firing_batch
 from ..ops.readout import join_tables, packed_readout, unpack_slab
 from ..ops.state import RingState, init_state, rebase_azimuth
+from ..utils.stats import StageTimer, WorkloadRecorder
 from .host_insertion import HostInsertion
 from .step import (META_CC_FAILED, META_CC_ROUNDS, META_COUNTER_OLD, META_FU_NEW,
                    META_FU_OLD, META_GCOL0, META_NCOLS, META_NUM_NEW, META_OVERFLOW,
@@ -73,6 +74,12 @@ class ContinuousClustering:
         self.finished_cluster_callback: Optional[Callable[[np.ndarray, int], None]] = None
         self._fifo: List[Dict[str, np.ndarray]] = []
         self._fifo_poses: List[np.ndarray] = []
+        # observability (reference recordJobQueueWorkload analog)
+        self.stats = StageTimer()
+        self.workload = WorkloadRecorder()
+        # decode-queue depth, fed by the owning node when a sensor decode
+        # thread runs (ClusteringNode._on_new_firing)
+        self._sensor_depth = 0
 
     # ------------------------------------------------------------------ API
     def set_configuration(self, config: Config) -> None:
@@ -293,16 +300,37 @@ class ContinuousClustering:
         firings, poses = self._fifo, self._fifo_poses
         self._fifo, self._fifo_poses = [], []
         calib = self._make_calib()
-        if self._host_ins is None:
-            self._last_pose = poses[-1]
-            n_cols = self._run_step(self._make_batch(firings, poses), calib)
-            # a step that clamped at its column capacity may leave finished
-            # columns behind; empty batches re-advance the frontier from the
-            # persistent prev_rearmost and drain them
-            while n_cols == self._batch_B and not self._reset_required:
-                n_cols = self._run_step(self._empty_batch(), calib)
-            self._maybe_rebase()
+        # queue-depth sampling across the four stages (reference
+        # recordJobQueueWorkload, …cpp:1147-1159): sensor = packets awaiting
+        # decode (set by the node when a decode thread runs), fifo = buffered
+        # firings, device = dispatched-but-unconsumed steps, publish =
+        # finished-but-unpublished column backlog
+        self.workload.record(
+            sensor=self._sensor_depth,
+            fifo=len(firings),
+            device=len(self._pending_infos),
+            publish=max(0, self._h_first_unfinished - self._h_first_unpublished),
+        )
+        # no synchronisation is added for the timers: in async mode
+        # "device_step" times the step's enqueue (and the meta read of the
+        # step before it), not the device's work on this step
+        if self._host_ins is not None:
+            with self.stats.track("device_step"):
+                self._process_batch_host(firings, poses)
             return
+        self._last_pose = poses[-1]
+        with self.stats.track("host_batch_prep"):
+            batch = self._make_batch(firings, poses)
+        with self.stats.track("device_step"):
+            n_cols = self._run_step(batch, calib)
+        # a step that clamped at its column capacity may leave finished
+        # columns behind; empty batches re-advance the frontier from the
+        # persistent prev_rearmost and drain them
+        while n_cols == self._batch_B and not self._reset_required:
+            n_cols = self._run_step(self._empty_batch(), calib)
+        self._maybe_rebase()
+
+    def _process_batch_host(self, firings, poses) -> None:
         ins = self._host_ins
         first, end, reset = ins.add_firings(firings, poses)
         if reset:

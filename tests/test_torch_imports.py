@@ -41,7 +41,12 @@ def test_every_port_module_imports_without_jax():
     mods = port_modules()
     for m in ("ops.cc_cuda", "ops.insertion", "ops.oracle", "models.checkpoint",
               "models.throughput", "tools.bench_setup", "config", "evaluation.synthetic",
-              "parallel.multi_sensor", "utils.cli", "tools.multi_sensor_demo"):
+              "parallel.multi_sensor", "utils.cli", "tools.multi_sensor_demo",
+              "sensors.sensor_input", "sensors.velodyne", "sensors.velodyne_calibration",
+              "sensors.ouster", "io.node", "io.transform_synchronizer", "io.publish_utils",
+              "io.rosbag", "launch", "tools.rosbag_replay", "tools.make_minimal_rosbag",
+              "tools.latency_bench", "tools.sensor_packets", "utils.stats", "utils.platform",
+              "utils.profiling"):
         assert f"continuous_clustering_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
