@@ -18,8 +18,10 @@ side by side), then:
    them and the snake, each stream against its own window's twin (3, 4
    and 64 unconverged rounds in one launch);
 3. checks the port facade on the card against the sequential oracle at
-   32 x 220 (partition >= 0.995, ground labels exact) and on the serpentine
-   stream (converges, stays one component);
+   32 x 220 (partition >= 0.995, ground labels exact), on the serpentine
+   stream (converges, stays one component), and at 8 x 220 on host
+   insertion (the two-buffer staging below 15 rows) against the same stream
+   on the CPU (partition, ground labels and cluster sizes equal);
 4. streams the KITTI configuration (64 x 2200, firing batch 384) through
    ``ContinuousClustering.add_firing`` (host insertion) on the card and
    holds the published partition against the same stream run on the CPU
@@ -50,13 +52,21 @@ side by side), then:
     three-node ``demo_touareg``; each holds its published partition and
     clusters against the same packets through the same preset on the CPU;
     then runs ``tools/latency_bench.py`` on the card (64 x 2200, batch 128,
-    600 rpm pacing, 2 revolutions) and prints its percentiles.
+    600 rpm pacing, 2 revolutions) and prints its percentiles;
+11. runs the KITTI evaluation on the card: writes a synthetic KITTI-shaped
+    sequence of 3 frames at 64 x 2200 (HDL-64 inclinations, ego speed 5 m/s)
+    to a temporary folder, generates its euclidean ground truth
+    (``tools/gt_label_generator.py``), runs ``tools/kitti_demo.KittiDemo``
+    on the card (host insertion, firing batch 256) and holds each frame's
+    ``FrameResult`` and the published partition against the same demo on
+    the CPU, exactly; then ``tools/html_viewer.main`` once on the card at
+    32 x 220 (its payload must hold points and clusters).
 
-Phases 3 to 10 drive the port's paths; the kernels' launch counters are set
-to 0 just before each and read just after, and each of phases 3-7, 9 and 10
-must have launched K1 and K2 (phase 9 once per step), phase 8 the probe
-kernel.  Every phase raises on failure.  The line before the last is a JSON
-object with one entry per kernel (launches summed over phases 3-10;
+Phases 3 to 11 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each of phases 3-7, 9, 10
+and 11 must have launched K1 and K2 (phase 9 once per step), phase 8 the
+probe kernel.  Every phase raises on failure.  The line before the last is a JSON
+object with one entry per kernel (launches summed over phases 3-11;
 ``max_abs_err`` over every
 comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
 without; K1 and K2 on the KITTI window, the probe's slowest variant at
@@ -84,6 +94,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 B_FIRINGS = 384            # firing batch of the streamed KITTI configuration
 FULL_ROWS, SMALL_ROWS, SMALL_COLS = 64, 32, 220
+FEW_ROWS = 8               # below the 15 rows the merged staging buffer needs
 # one NVIDIA H100 SXM (data sheet): HBM rate and the f32 rate outside the
 # tensor cores, the roofline of both kernels (neither uses the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -529,10 +540,11 @@ def main() -> int:
     snake_ids = set(snake_labels.values()) - {0}
     check(len(snake_labels) > 300 and len(snake_ids) <= 2,
           f"serpentine: {len(snake_labels)} points in {len(snake_ids)} clusters")
+    few = few_rows_phase(scfg, dev)
     got = launches.stop("phase 3")
     print(f"phase 3: oracle agreement {agree:.6f} on {len(common)} points, ground exact; "
           f"serpentine converged, {len(snake_labels)} points in {len(snake_ids)} cluster(s); "
-          f"launches {got}")
+          f"{few}; launches {got}")
 
     # ---- phase 4: the host-insertion main path at full size ------------------
     pipe = make_facade(cfg, FULL_ROWS, dev, B_FIRINGS)
@@ -745,6 +757,9 @@ def main() -> int:
     # ---- phase 10: the sensor entry point, from raw packets -------------------
     for name, err in node_phase(dev, launches, card).items():
         max_err[name] = max(max_err[name], err)
+
+    # ---- phase 11: the KITTI evaluation on the card --------------------------
+    kitti_phase(dev, launches)
 
     # ms: CUDA events around the launch as the host issues it, the host's
     # enqueue included; device_ms: the device's time alone
@@ -1097,6 +1112,136 @@ def node_phase(dev, launches, card, n_rev=2):
           f"{lat['real_time_s']:.3f} s of sensor time; launches {got}")
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s in all")
     return max_err
+
+
+def few_rows_phase(scfg, dev):
+    """Phase 3's 8 x 220 leg: host insertion below 15 rows (fields and
+    scalars in one upload, the pose rows in a second) on the card against
+    the same stream on the CPU.  Returns a line of text."""
+    from continuous_clustering_tpu_torch.evaluation.partition import partition_agreement
+    from continuous_clustering_tpu_torch.evaluation.synthetic import (
+        frame_to_firings, make_scene, raycast_frame)
+    from continuous_clustering_tpu_torch.ops.ingest import N_SPLIT_PLANES
+
+    scene = make_scene(num_boxes=8, seed=4, spread=20.0)
+    firings = []
+    for f in range(2):
+        xyz, _ = raycast_frame(scene, num_rows=FEW_ROWS, num_columns=SMALL_COLS, seed=4 + f)
+        firings += frame_to_firings(xyz, frame_index=f)
+    labels, ground, clusters, pipe = run_facade(scfg, FEW_ROWS, firings, dev, 64)
+    check(pipe._staging.shape[0] == N_SPLIT_PLANES, "8 rows: not the two-buffer staging")
+    c_labels, c_ground, c_clusters, _ = run_facade(scfg, FEW_ROWS, firings, "cpu", 64)
+    check(labels.keys() == c_labels.keys() and len(labels) > 300,
+          f"8 rows: {len(labels)} points published on the card, {len(c_labels)} on the CPU")
+    agree = partition_agreement(c_labels, labels)
+    check(agree == 1.0, f"8 rows: card vs CPU partition agreement {agree}")
+    check(ground == c_ground, "8 rows: ground labels differ from the CPU's")
+    check(clusters and sorted(clusters) == sorted(c_clusters),
+          f"8 rows: cluster sizes {sorted(clusters)} vs CPU {sorted(c_clusters)}")
+    return (f"host insertion at {FEW_ROWS} x {SMALL_COLS} (two uploads a step): partition "
+            f"agreement with the CPU {agree} on {len(labels)} points, ground labels and "
+            f"{len(clusters)} cluster sizes equal")
+
+
+def kitti_phase(dev, launches, n_frames=3, n_cols=2200):
+    """Phase 11: the KITTI evaluation harness on a synthetic sequence at
+    64 x 2200 on the card against the CPU, then the HTML viewer."""
+    import base64
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from continuous_clustering_tpu_torch.tools import gt_label_generator, html_viewer
+    from continuous_clustering_tpu_torch.tools.kitti_demo import KittiDemo
+    from continuous_clustering_tpu_torch.tools.make_synthetic_dataset import write_sequence
+    from continuous_clustering_tpu_torch.utils.platform import describe_device
+
+    class RecordingDemo(KittiDemo):
+        """The demo, recording each published point's cluster id."""
+
+        partition: dict
+
+        def _on_finished_columns(self, pipe, from_gcol, to_gcol):
+            cloud = pipe.get_columns(from_gcol, to_gcol)
+            ok = cloud["globally_unique_point_index"] != np.iinfo(np.uint64).max
+            self.partition.update(zip(cloud["globally_unique_point_index"][ok].tolist(),
+                                      cloud["id"][ok].tolist()))
+            super()._on_finished_columns(pipe, from_gcol, to_gcol)
+
+    t_phase = time.perf_counter()
+    desc = describe_device(dev)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "kitti"
+        write_sequence(root, "00", num_frames=n_frames, num_boxes=10, seed=0,
+                       num_rows=FULL_ROWS, num_columns=n_cols, speed_mps=5.0)
+        with contextlib.redirect_stdout(io.StringIO()):
+            gt_label_generator.main([str(root), "00"])
+        os.chdir(tmp)
+        try:
+            runs = {}
+            for name, device in (("card", dev), ("cpu", "cpu")):
+                demo = RecordingDemo(evaluate=True, delay_between_columns=0, device=device,
+                                     num_rows=FULL_ROWS, num_columns=n_cols)
+                demo.partition = {}
+                if name == "card":
+                    launches.start()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    demo.run(root, ["00"])
+                if name == "card":
+                    torch.cuda.synchronize()
+                    got = launches.stop("phase 11 kitti demo")
+                    steps = demo.last_pipe.n_steps
+                    check(demo.last_pipe.state.x.device == dev
+                          and demo.last_pipe._host_ins is not None,
+                          "phase 11: the demo did not run host insertion on the card")
+                    check(got["edge_bits"] == got["window_cc"] == steps,
+                          f"phase 11: launches {got} != association steps {steps}")
+                runs[name] = (demo, time.perf_counter() - t0)
+        finally:
+            os.chdir(cwd)
+        (gpu, dt), (cpu, t_cpu) = runs["card"], runs["cpu"]
+        frames = [dataclasses.astuple(r) for r in gpu.evaluation.per_sequence[-1]]
+        cpu_frames = [dataclasses.astuple(r) for r in cpu.evaluation.per_sequence[-1]]
+        check(len(frames) == n_frames and frames == cpu_frames,
+              f"phase 11: per-frame results on the card {frames} vs the CPU {cpu_frames}")
+        agree, n_common = agreement_with_cpu(gpu.partition, cpu.partition, "phase 11")
+        table = gpu.evaluation.generate_evaluation_results()
+        check(table == cpu.evaluation.generate_evaluation_results(),
+              "phase 11: the result tables differ")
+        pooled = [line for line in table.splitlines() if "All (**Ours**)" in line][0]
+        recall = float(pooled.split("|")[2].split("/")[0])
+        check(recall > 90.0, f"phase 11: ground recall {recall}")
+        cols = n_frames * n_cols
+        facade = gpu.last_pipe.stats.summary().get("device_step", {"count": 0, "total_s": 0.0})
+        print(f"phase 11: {desc['device']}, power limit {desc['power_limit']}: KITTI demo on "
+              f"{n_frames} synthetic frames of {FULL_ROWS} x {n_cols} (ego 5 m/s, host insertion, "
+              f"firing batch {gpu.firing_batch}): {dt:.3f} s, {dt / n_frames:.3f} s per frame, "
+              f"{cols / dt:.0f} columns/s, {steps} steps, {facade['count']} batches taking "
+              f"{facade['total_s']:.3f} s in the facade; launches {got}; CPU leg {t_cpu:.1f} s "
+              f"({t_cpu / n_frames:.3f} s per frame): per-frame (tp, fp, fn, tn, use, ose) "
+              f"equal, partition agreement {agree} on {n_common} points")
+        print(f"phase 11: pooled row {pooled}")
+        out = Path(tmp) / "viewer.html"
+        launches.start()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = html_viewer.main([str(out), "--rows", str(SMALL_ROWS), "--columns",
+                                   str(SMALL_COLS), "--device", str(dev)])
+        torch.cuda.synchronize()
+        got = launches.stop("phase 11 html viewer")
+        data = json.loads(re.search(r"const DATA = (\{.*?\});\n", out.read_text(), re.S).group(1))
+        n_pts = len(base64.b64decode(data["xyz_b64"])) // 12
+        n_clusters = data["kinds"].count("cluster")
+        check(rc == 0 and data["n"] == n_pts > 0 and n_clusters > 0,
+              f"phase 11: html viewer rc {rc}, {data['n']} points, {n_clusters} clusters")
+        print(f"phase 11: html viewer on the card at {SMALL_ROWS} x {SMALL_COLS}: {n_pts} points, "
+              f"{n_clusters} clusters in its payload; launches {got}")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def serpentine_firings():

@@ -17,9 +17,12 @@ package mirrors its layout so each module's counterpart is easy to find:
 * ``sensors``    — Velodyne and Ouster packet decoders (native, or their
                    NumPy twins when asked) and the generic points input
 * ``launch``     — the reference's vehicle, sensor and demo presets
-* ``evaluation`` — synthetic scenes and partition comparison
+* ``evaluation`` — synthetic scenes, partition comparison, the SemanticKITTI
+                   loader, euclidean ground truth and the OSE/USE metrics
 * ``tools``      — throughput measurement set-up (``bench_setup``), the
-                   multi-sensor demo, rosbag replay, the latency bench
+                   multi-sensor demo, rosbag replay, the latency bench, the
+                   KITTI demo and its dataset and ground-truth tools, the
+                   viewers
 * ``native``     — builds and loads the C++ host library from ``csrc/host``
 * ``convert``    — JAX-state <-> port-state and config conversion through numpy
 
@@ -30,6 +33,26 @@ are its own copies.  Entry points run on the card (``device=None`` means
 ``cuda``) unless the caller asks for the CPU.
 """
 
-from .config import Config, kitti_config
+from .config import (
+    ClusteringConfig,
+    Config,
+    GeneralConfig,
+    GroundSegmentationConfig,
+    RangeImageConfig,
+    kitti_config,
+    ouster_os32_config,
+    vls128_roof_config,
+)
 
-__all__ = ["Config", "kitti_config"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "Config",
+    "GeneralConfig",
+    "RangeImageConfig",
+    "GroundSegmentationConfig",
+    "ClusteringConfig",
+    "kitti_config",
+    "vls128_roof_config",
+    "ouster_os32_config",
+]

@@ -11,9 +11,10 @@ Two insertion paths, chosen by the ``insertion`` argument:
 
 * ``"host"`` (default): per firing batch the native C++ engine inserts the
   firings on the host; each finished column block goes to the device as ONE
-  merged i32 buffer (one host-to-device copy) and runs
-  ``pipeline_step_block``.  The native library is required: when it cannot
-  be built, ``reset`` raises.
+  merged i32 buffer (one host-to-device copy; below 15 rows two: fields and
+  scalars, then the (B, 15) pose rows) and runs ``pipeline_step_block``.
+  The native library is required: when it cannot be built, ``reset``
+  raises.
 * ``"device"``: the firing batch goes to the device and ``pipeline_step``
   inserts it there.  A step that finished more columns than it holds
   defers the surplus; empty batches drain it.
@@ -35,7 +36,8 @@ from ..config import Config
 from ..io.point_cloud import ProcessingStage, combine_u64, stage_dtype
 
 from ..io import native_readout
-from ..ops.ingest import N_BLOCK_FIELDS, N_BLOCK_SCALARS, N_MERGED_PLANES, split_merged, unpack_block
+from ..ops.ingest import (MERGED_MIN_ROWS, N_BLOCK_FIELDS, N_BLOCK_SCALARS, N_MERGED_PLANES,
+                          N_SPLIT_PLANES, split_fields, split_merged, unpack_block)
 from ..ops.insertion import FiringBatch, make_firing_batch
 from ..ops.readout import join_tables, packed_readout, unpack_slab
 from ..ops.state import RingState, init_state, rebase_azimuth
@@ -110,9 +112,6 @@ class ContinuousClustering:
 
     def reset(self, num_rows: int) -> None:
         host = self._insertion == "host"
-        if host and num_rows < 15:
-            raise ValueError("the merged staging buffer carries the (B, 15) pose "
-                             "matrix in one (B, R) plane: num_rows must be >= 15")
         self._num_rows = num_rows
         self._state = init_state(self._config, num_rows, self._device)
         self._reset_required = False
@@ -191,8 +190,8 @@ class ContinuousClustering:
                 fu_before = self._h_first_unpublished
                 if self._host_ins is not None:
                     fu = self._h_first_unfinished
-                    buf, _ = self._merged_block(fu, fu, False)
-                    self._consume_info(self._run_block(buf))
+                    staged, _ = self._stage_block(fu, fu, False)
+                    self._consume_info(self._run_block(staged))
                 else:
                     self._run_step(self._empty_batch(), self._make_calib())
                 self._drain_pending()
@@ -200,19 +199,29 @@ class ContinuousClustering:
                     break
 
     # ---------------------------------------------------------------- internals
-    def _merged_block(self, first: int, end: int, reset: bool):
-        """The single-transfer staging buffer for columns [first, first + B):
-        field planes, seg-pose plane, scalar plane.  Returns (buffer, n_cols).
+    def _stage_block(self, first: int, end: int, reset: bool):
+        """The staging buffers for columns [first, first + B).  Returns
+        ((buffer, seg poses), n_cols).  With R >= 15 rows the buffer is the
+        merged one (field planes, seg-pose plane, scalar plane) and the seg
+        poses are None; below, the buffer holds the field planes and the
+        scalar plane and the seg poses are a (B, 15) f32 array of their own.
         One host buffer suffices: the upload copies it before returning."""
         B, R = self._batch_B, self._num_rows
-        if self._staging is None or self._staging.shape != (N_MERGED_PLANES, B, R):
-            self._staging = np.zeros((N_MERGED_PLANES, B, R), np.int32)
+        merged = R >= MERGED_MIN_ROWS
+        shape = (N_MERGED_PLANES if merged else N_SPLIT_PLANES, B, R)
+        if self._staging is None or self._staging.shape != shape:
+            self._staging = np.zeros(shape, np.int32)
         buf = self._staging
         _, scalars, trig = self._host_ins.fetch_block_packed(
             first, end, B, self._h_origin_rot, reset, out=buf)
-        buf[N_BLOCK_FIELDS, :, :15].view(np.float32)[...] = self._seg_poses_packed(trig)
-        buf[N_BLOCK_FIELDS + 1, 0, :N_BLOCK_SCALARS] = scalars
-        return buf, int(scalars[1])
+        segp = self._seg_poses_packed(trig)
+        if merged:
+            buf[N_BLOCK_FIELDS, :, :15].view(np.float32)[...] = segp
+            buf[N_BLOCK_FIELDS + 1, 0, :N_BLOCK_SCALARS] = scalars
+            segp = None
+        else:
+            buf[N_BLOCK_FIELDS].reshape(-1)[:N_BLOCK_SCALARS] = scalars
+        return (buf, segp), int(scalars[1])
 
     def _seg_poses_packed(self, trig_poses: np.ndarray) -> np.ndarray:
         """(B, 15) f32 rows [sensor_pos | ego_rot (9) | ego_trans]."""
@@ -277,20 +286,26 @@ class ContinuousClustering:
                 device=self._device)
         return self._hsg_dev
 
-    def _upload_block(self, buf: np.ndarray):
-        """One merged staging buffer on the device (one host-to-device copy)
-        as the step's (ColumnBlock, SegPoses)."""
+    def _upload_block(self, staged):
+        """``_stage_block``'s buffers on the device as the step's
+        (ColumnBlock, SegPoses): one host-to-device copy, or two below 15
+        rows."""
         B = self._batch_B
+        buf, segp = staged
         dev_buf = torch.from_numpy(buf).to(self._device, copy=True)
-        fields, scalars, segp = split_merged(dev_buf)
+        if segp is None:
+            fields, scalars, segp = split_merged(dev_buf)
+        else:
+            fields, scalars = split_fields(dev_buf)
+            segp = torch.from_numpy(segp).to(self._device, copy=True)
         seg = SegPoses(sensor_pos=segp[:, 0:3], ego_rot=segp[:, 3:12].reshape(B, 3, 3),
                        ego_trans=segp[:, 12:15])
         return unpack_block(fields, scalars), seg
 
-    def _run_block(self, buf: np.ndarray) -> StepInfo:
-        """Upload one merged buffer and run the step on it."""
+    def _run_block(self, staged) -> StepInfo:
+        """Upload one block's staging buffers and run the step on it."""
         self.n_steps += 1
-        block, seg = self._upload_block(buf)
+        block, seg = self._upload_block(staged)
         self._state, info = pipeline_step_block(
             self._config, self._state, block, seg, self._hsg(), self._batch_B,
             slab_cols=self._slab_W, slab_head=self._slab_W1)
@@ -337,8 +352,8 @@ class ContinuousClustering:
             self._reset_required = True
             return
         while True:
-            buf, n = self._merged_block(first, end, reset)
-            info = self._run_block(buf)
+            staged, n = self._stage_block(first, end, reset)
+            info = self._run_block(staged)
             if self._config.general.is_single_threaded:
                 self._consume_info(info)
             else:

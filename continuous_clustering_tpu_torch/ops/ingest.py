@@ -1,10 +1,14 @@
 """Dense column-block ingest (port of ``continuous_clustering_tpu/ops/ingest.py``).
 
 The native host insertion engine hands the device dense finished column
-blocks; this op only places them in the ring.  The host ships one merged
-``(N_MERGED_PLANES, B, R)`` i32 buffer per step (fields, per-column
-segmentation poses and frontier scalars), so a step costs ONE host-to-device
-copy; ``split_merged`` and ``unpack_block`` take it apart on the device.
+blocks; this op only places them in the ring.  With R >= 15 rows the host
+ships one merged ``(N_MERGED_PLANES, B, R)`` i32 buffer per step (fields,
+per-column segmentation poses and frontier scalars), so a step costs ONE
+host-to-device copy; ``split_merged`` and ``unpack_block`` take it apart on
+the device.  Below 15 rows a (B, R) plane cannot carry the (B, 15) pose
+rows: the host ships an ``(N_SPLIT_PLANES, B, R)`` buffer of fields and
+scalars (``split_fields``) and the poses as a second (B, 15) f32 buffer,
+as the JAX facade's packed staging does.
 """
 
 from __future__ import annotations
@@ -54,6 +58,10 @@ N_BLOCK_SCALARS = 8
 # plane N_BLOCK_FIELDS lanes 0:15 carry the (B, 15) seg-pose matrix (f32
 # bits), plane N_BLOCK_FIELDS + 1 column 0 lanes 0:8 the scalars; needs R >= 15
 N_MERGED_PLANES = N_BLOCK_FIELDS + 2
+MERGED_MIN_ROWS = 15
+# any R: plane N_BLOCK_FIELDS, flattened, carries the scalars in lanes 0:8
+# (B * R >= 8 for every step width the facade uses)
+N_SPLIT_PLANES = N_BLOCK_FIELDS + 1
 
 
 def split_merged(buf: torch.Tensor):
@@ -62,6 +70,12 @@ def split_merged(buf: torch.Tensor):
     segp = buf[N_BLOCK_FIELDS, :, :15].contiguous().view(torch.float32)
     scalars = buf[N_BLOCK_FIELDS + 1, 0, :N_BLOCK_SCALARS]
     return fields, scalars, segp
+
+
+def split_fields(buf: torch.Tensor):
+    """(fields (N_BLOCK_FIELDS, B, R), scalars (8,)) of an
+    ``(N_SPLIT_PLANES, B, R)`` buffer."""
+    return buf[:N_BLOCK_FIELDS], buf[N_BLOCK_FIELDS].reshape(-1)[:N_BLOCK_SCALARS]
 
 
 def unpack_block(fields: torch.Tensor, scalars: torch.Tensor) -> ColumnBlock:

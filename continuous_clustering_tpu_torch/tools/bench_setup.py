@@ -74,8 +74,8 @@ def _insert_revolution(pipe, firings, num_cols):
     blocks, seg_poses = [], []
     first, end, reset = ins.add_firings(firings, [np.eye(4)] * len(firings))
     while first < end:
-        buf, n = pipe._merged_block(first, end, reset)
-        blk, sp = pipe._upload_block(buf)
+        staged, n = pipe._stage_block(first, end, reset)
+        blk, sp = pipe._upload_block(staged)
         blocks.append(blk)
         seg_poses.append(sp)
         first += n

@@ -46,7 +46,10 @@ def test_every_port_module_imports_without_jax():
               "sensors.ouster", "io.node", "io.transform_synchronizer", "io.publish_utils",
               "io.rosbag", "launch", "tools.rosbag_replay", "tools.make_minimal_rosbag",
               "tools.latency_bench", "tools.sensor_packets", "utils.stats", "utils.platform",
-              "utils.profiling"):
+              "utils.profiling", "tools.make_synthetic_dataset", "evaluation.kitti_loader",
+              "evaluation.euclidean_clustering", "evaluation.kitti_evaluation",
+              "tools.gt_label_generator", "tools.kitti_demo", "io.evaluation_cloud",
+              "tools.visualize", "tools.html_viewer", "tools.plot_workload"):
         assert f"continuous_clustering_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -89,3 +92,15 @@ def test_no_port_source_imports_or_reads_the_jax_package():
     assert sorted(p.name for p in (PORT / "csrc" / "host").iterdir()) == [
         "decode_offload.cpp", "insertion.cpp", "kitti.cpp", "ouster.cpp", "readout.cpp",
         "runtime.hpp", "velodyne.cpp"]
+
+
+def test_package_surface_matches_the_jax_package():
+    """The port exports the names the JAX package exports, and its version."""
+    import continuous_clustering_tpu as jax_pkg
+
+    assert continuous_clustering_tpu_torch.__all__ == jax_pkg.__all__
+    assert continuous_clustering_tpu_torch.__version__ == jax_pkg.__version__
+    for name in jax_pkg.__all__:
+        port_obj = getattr(continuous_clustering_tpu_torch, name)
+        assert port_obj.__module__ == "continuous_clustering_tpu_torch.config", name
+        assert port_obj.__name__ == getattr(jax_pkg, name).__name__
