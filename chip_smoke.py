@@ -60,13 +60,21 @@ side by side), then:
     on the card (host insertion, firing batch 256) and holds each frame's
     ``FrameResult`` and the published partition against the same demo on
     the CPU, exactly; then ``tools/html_viewer.main`` once on the card at
-    32 x 220 (its payload must hold points and clusters).
+    32 x 220 (its payload must hold points and clusters);
+12. runs the column-sharded halo step (``parallel/halo.py``) with every
+    shard on the card: the phase-4 scene at 64 x 2200 (3 revolutions,
+    captured once with the host insertion) through the unsharded
+    ``pipeline_step_block`` and the halo step with nsp 4, both with the
+    publish slab; nsp 8 over the first revolution; two streams over
+    dp 2 x sp 4 in one stacked step.  Every ring field, the slot table, the
+    scalars and every step's meta, slab and tail must equal the unsharded
+    run's; prints ms per step of each beside the unsharded step's.
 
-Phases 3 to 11 drive the port's paths; the kernels' launch counters are set
-to 0 just before each and read just after, and each of phases 3-7, 9, 10
-and 11 must have launched K1 and K2 (phase 9 once per step), phase 8 the
+Phases 3 to 12 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each of phases 3-7 and 9-12
+must have launched K1 and K2 (phases 9 and 12 once per step), phase 8 the
 probe kernel.  Every phase raises on failure.  The line before the last is a JSON
-object with one entry per kernel (launches summed over phases 3-11;
+object with one entry per kernel (launches summed over phases 3-12;
 ``max_abs_err`` over every
 comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
 without; K1 and K2 on the KITTI window, the probe's slowest variant at
@@ -761,6 +769,9 @@ def main() -> int:
     # ---- phase 11: the KITTI evaluation on the card --------------------------
     kitti_phase(dev, launches)
 
+    # ---- phase 12: the column-sharded halo step ------------------------------
+    halo_phase(cfg, dev, launches, card)
+
     # ms: CUDA events around the launch as the host issues it, the host's
     # enqueue included; device_ms: the device's time alone
     kit, pt = k2["kitti"], probe_t[slowest]
@@ -1242,6 +1253,131 @@ def kitti_phase(dev, launches, n_frames=3, n_cols=2200):
         print(f"phase 11: html viewer on the card at {SMALL_ROWS} x {SMALL_COLS}: {n_pts} points, "
               f"{n_clusters} clusters in its payload; launches {got}")
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def halo_phase(cfg, dev, launches, card, n_rev=3):
+    """Phase 12: the column-sharded halo step (``parallel/halo.py``) on the
+    card, every shard on ``dev``.  The phase-4 scene at full width (ring of
+    10 revolutions, firing batch 384) is captured once with the host
+    insertion on the card and run through the unsharded
+    ``pipeline_step_block`` and through the halo step with nsp 4, both with
+    the publish slab (W 128, head 64); then with nsp 8 over the first
+    revolution; then two streams over dp 2 x sp 4 in one stacked step.  Every
+    ring field, the slot table, the scalars and every step's meta, slab and
+    slab tail must equal the unsharded run's, and K1 and K2 must launch once
+    per step (once for both streams when stacked)."""
+    import torch
+
+    from continuous_clustering_tpu_torch.models.step import pipeline_step_block
+    from continuous_clustering_tpu_torch.models.throughput import stack_batches
+    from continuous_clustering_tpu_torch.ops.state import init_state
+    from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step, place_state
+    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from continuous_clustering_tpu_torch.parallel.multi_sensor import stacked_init
+    from continuous_clustering_tpu_torch.tools import bench_setup
+
+    t_phase = time.perf_counter()
+    n_cols, rc = cfg.range_image.num_columns, cfg.ring_buffer_max_columns
+    W, W1 = 128, 64
+    hsg = torch.tensor(bench_setup.HSG, device=dev)
+
+    def capture(seed, num_boxes):
+        """(steps of every revolution, steps of the first, step width B)."""
+        pipe = make_facade(cfg, FULL_ROWS, dev, B_FIRINGS)
+        firings = kitti_stream(FULL_ROWS, n_cols, n_rev, seed=seed, num_boxes=num_boxes)
+        steps, first = [], 0
+        for r in range(n_rev):
+            blocks, segps = bench_setup._insert_revolution(
+                pipe, firings[r * n_cols:(r + 1) * n_cols], n_cols)
+            steps += zip(blocks, segps)
+            first = first or len(steps)
+        return steps, first, pipe._batch_B
+
+    def drive(label, step, state, steps):
+        """``state, info = step(state, block, seg_poses)`` over ``steps``,
+        the launch counters set to 0 just before and read just after; returns
+        (state, infos, ms per step, launches)."""
+        infos = []
+        torch.cuda.synchronize()
+        launches.start()
+        t0 = time.perf_counter()
+        for blk, segp in steps:
+            state, info = step(state, blk, segp)
+            infos.append(info)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / len(steps) * 1e3
+        got = launches.stop(f"phase 12 {label}")
+        check(got["edge_bits"] == got["window_cc"] == len(steps),
+              f"phase 12 {label}: launches {got}, {len(steps)} steps")
+        return state, infos, ms, got
+
+    def same_infos(label, infos, refs):
+        check(len(infos) == len(refs), f"phase 12 {label}: {len(infos)} steps, {len(refs)}")
+        for k, (a, b) in enumerate(zip(infos, refs)):
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"phase 12 {label}: step {k} meta or slab differs from the unsharded step")
+
+    steps, first, B = capture(5, 14)
+
+    def unsharded(slab):
+        return lambda s, b, p: pipeline_step_block(cfg, s, b, p, hsg, B, *slab)
+
+    def fresh():
+        return init_state(cfg, FULL_ROWS, dev)
+
+    ref, ref_infos, ms_ref, got_ref = drive("unsharded", unsharded((W, W1)), fresh(), steps)
+    mesh4 = make_mesh(devices=[dev] * 4, dp=1)
+    run4 = make_halo_sharded_step(cfg, mesh4, B, slab_cols=W, slab_head=W1)
+    sh4, infos4, ms4, got4 = drive("halo nsp 4", lambda s, b, p: run4(s, b, p, hsg),
+                                   place_state(mesh4, fresh()), steps)
+    same_infos("nsp 4", infos4, ref_infos)
+    check(states_equal(gather_state(sh4), ref), "phase 12 nsp 4: state differs")
+    check(int(ref.ring_start) > 0 and not bool(ref.overflow), "phase 12: the clear never ran")
+    print(f"phase 12: {card}: halo step at {FULL_ROWS} x {n_cols} (ring {rc} columns, B {B}, "
+          f"slab {W}/{W1}, {n_rev} revolutions, {len(steps)} steps): nsp 4 {ms4:.2f} ms/step vs "
+          f"the unsharded step {ms_ref:.2f} ms/step; every ring field, the slot table, the "
+          f"scalars and every step's meta, slab and tail equal; launches halo {got4}, "
+          f"unsharded {got_ref}")
+    del sh4, ref
+
+    mesh8 = make_mesh(devices=[dev] * 8, dp=1)
+    run8 = make_halo_sharded_step(cfg, mesh8, B)
+    ref8, ref8_infos, ms_ref8, _ = drive("unsharded first revolution", unsharded((0, 0)),
+                                         fresh(), steps[:first])
+    sh8, infos8, ms8, got8 = drive("halo nsp 8", lambda s, b, p: run8(s, b, p, hsg),
+                                   place_state(mesh8, fresh()), steps[:first])
+    same_infos("nsp 8", infos8, ref8_infos)
+    check(states_equal(gather_state(sh8), ref8), "phase 12 nsp 8: state differs")
+    print(f"phase 12: {card}: nsp 8 over the first revolution ({first} steps, no slab): "
+          f"{ms8:.2f} ms/step vs the unsharded step {ms_ref8:.2f} ms/step; state and meta "
+          f"equal; launches {got8}")
+    del sh8, ref8
+
+    steps2, _, _ = capture(6, 15)
+    n = min(len(steps), len(steps2))
+    refs, ms_one = [], 0.0
+    for s, st_steps in enumerate((steps, steps2)):
+        final, infos, ms, _ = drive(f"unsharded stream {s}", unsharded((0, 0)), fresh(),
+                                    st_steps[:n])
+        refs.append((final, infos))
+        ms_one += ms / 2
+    mesh2 = make_mesh(devices=[dev] * 8)
+    run2 = make_halo_sharded_step(cfg, mesh2, B, stacked=True)
+    both = [(stack_batches([steps[k][0], steps2[k][0]]), stack_batches([steps[k][1], steps2[k][1]]))
+            for k in range(n)]
+    hsg2 = torch.stack([hsg, hsg])
+    st, infos_st, ms_st, got_st = drive(
+        "halo stacked", lambda s, b, p: run2(s, b, p, hsg2),
+        place_state(mesh2, stacked_init(cfg, FULL_ROWS, 2, dev), stacked=True), both)
+    full = gather_state(st)
+    for s, (final, infos) in enumerate(refs):
+        same_infos(f"stacked stream {s}", [type(i)(*[t[s] for t in i]) for i in infos_st], infos)
+        check(states_equal(type(final)(**{f: t[s] for f, t in vars(full).items()}), final),
+              f"phase 12 stacked: stream {s} state differs from its unsharded run")
+    print(f"phase 12: {card}: two streams over dp 2 x sp 4 on one card, stacked: {ms_st:.2f} "
+          f"ms/step ({n} steps) vs {ms_one:.2f} ms per unsharded stream step; each stream's "
+          f"state and meta equal its unsharded run; launches {got_st} (once per stacked step)")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def serpentine_firings():

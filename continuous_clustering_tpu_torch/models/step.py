@@ -13,14 +13,16 @@ step's scalars ride ONE i32 vector (``StepInfo.meta``) so that the host
 reads them with a single device-to-host copy.
 
 ``pipeline_step`` is ``insert_and_segment``, ``associate_and_complete`` and
-``finish_step`` in order; the multi-sensor step
-(``parallel/multi_sensor.py``) runs the same parts per stream and launches
-the association kernels once for all its streams between them.
+``finish_step`` in order, ``pipeline_step_block`` the same with
+``ingest_and_segment`` first; the multi-sensor step
+(``parallel/multi_sensor.py``) and the column-sharded halo step
+(``parallel/halo.py``) run the same parts per stream and launch the
+association kernels once for all their streams between them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -128,20 +130,32 @@ def _publish_slab(config: Config, state: RingState, fu_old, slab_cols: int, head
 
 def pipeline_step_block(config: Config, state: RingState, block: ColumnBlock,
                         seg_poses: SegPoses, hsg: torch.Tensor, batch_cols: int,
-                        slab_cols: int = 0, slab_head: int = 0):
+                        slab_cols: int = 0, slab_head: int = 0,
+                        ring_capacity: Optional[int] = None, skip_clear: bool = False):
     """Ingest a dense finished-column block, then segmentation, association
-    and completion.  Updates ``state`` in place; returns (state, StepInfo)."""
+    and completion.  Updates ``state`` in place; returns (state, StepInfo).
+    ``ring_capacity``/``skip_clear`` run the step on the halo path's
+    window-sized scratch ring (``parallel/halo.py``; see
+    ``ops.association.complete_association``)."""
+    state = ingest_and_segment(config, state, block, seg_poses, hsg, batch_cols)
+    counter_old = state.cluster_counter
+    cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols,
+                                  ring_capacity=ring_capacity, skip_clear=skip_clear)
+    return finish_step(config, cres, block.gcol0, block.n_cols, counter_old, slab_cols,
+                       slab_head)
+
+
+def ingest_and_segment(config: Config, state: RingState, block: ColumnBlock,
+                       seg_poses: SegPoses, hsg: torch.Tensor, batch_cols: int) -> RingState:
+    """The part of ``pipeline_step_block`` before association: ingest the
+    block and segment the ground.  Updates ``state`` in place."""
     state = ingest_columns(config, state, block, batch_cols)
     seg_in = SegmentInputs(
         gcol0=block.gcol0, n_cols=block.n_cols,
         sensor_pos=seg_poses.sensor_pos, ego_rot=seg_poses.ego_rot,
         ego_trans=seg_poses.ego_trans, height_sensor_to_ground=hsg,
     )
-    state = ground_segment_columns(config, state, seg_in, batch_cols)
-    counter_old = state.cluster_counter
-    cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols)
-    return finish_step(config, cres, block.gcol0, block.n_cols, counter_old, slab_cols,
-                       slab_head)
+    return ground_segment_columns(config, state, seg_in, batch_cols)
 
 
 def finish_step(config: Config, cres: CompleteResult, gcol0, n_cols, counter_old,

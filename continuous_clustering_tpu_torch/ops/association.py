@@ -28,7 +28,7 @@ loops test for convergence on the host: one sync per iteration.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -226,19 +226,29 @@ def neighbor_stats(config: Config, state: RingState, win: Window,
 
 
 def associate_and_complete(config: Config, state: RingState, gcol0, n_cols,
-                           batch_size: int) -> CompleteResult:
+                           batch_size: int, *, ring_capacity: Optional[int] = None,
+                           skip_clear: bool = False) -> CompleteResult:
     """Association (CC update) and completion for one column batch; updates
-    the ring and the state in place and returns the frontier results."""
+    the ring and the state in place and returns the frontier results.
+    ``ring_capacity``/``skip_clear``: see ``complete_association``."""
     win = window_arrays(config, state, gcol0, n_cols, batch_size)
     cc, = window_kernels(config, [win])
-    return complete_association(config, state, gcol0, n_cols, batch_size, win, cc)
+    return complete_association(config, state, gcol0, n_cols, batch_size, win, cc,
+                                ring_capacity=ring_capacity, skip_clear=skip_clear)
 
 
 def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_size: int,
-                         win: Window, cc: WindowCC) -> CompleteResult:
+                         win: Window, cc: WindowCC, *, ring_capacity: Optional[int] = None,
+                         skip_clear: bool = False) -> CompleteResult:
     """Everything of association after the kernels, for the window ``win``
     and its kernel results ``cc``; updates the ring and the state in place
-    and returns the frontier results."""
+    and returns the frontier results.
+
+    ``ring_capacity``/``skip_clear`` run the step on the halo path's
+    window-sized scratch ring (``parallel/halo.py``): ``ring_capacity`` is
+    the real ring's column count for the overflow check, and ``skip_clear``
+    advances ``ring_start`` as the bounded clear would without touching a
+    cell (the caller clears the real ring with the same gcol gate)."""
     cl = config.clustering
     H, K = cl.max_steps_in_row, cl.max_active_components
     R, rc, B = state.num_rows, state.ring_cols, batch_size
@@ -412,8 +422,9 @@ def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_
     clear_bound_new = torch.where(has_data, fu_old, clear_bound_old).to(I32)
     # writing column g reuses the cell of g - rc, which must be published
     # and already cleared
-    window_overflow = has_data & ((newest_gcol - rc >= fu_old)
-                                  | ((ring_start_old >= 0) & (newest_gcol - rc >= ring_start_old)))
+    rcap = rc if ring_capacity is None else ring_capacity
+    window_overflow = has_data & ((newest_gcol - rcap >= fu_old)
+                                  | ((ring_start_old >= 0) & (newest_gcol - rcap >= ring_start_old)))
 
     (state.slot_live, state.slot_valid, state.slot_finished, state.slot_cid,
      state.slot_parent, state.slot_finish, state.slot_gmin, state.slot_gmax,
@@ -425,7 +436,11 @@ def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_
     state.clear_target = clear_target_new
     state.overflow = state.overflow | window_overflow | slot_overflow
     state.cc_failed = state.cc_failed | (has_data & ~cc_ok)
-    state, cleared_to = clear_columns_chunk(state, ring_start_old, clear_target_new, B)
+    if skip_clear:
+        cleared_to = (ring_start_old
+                      + torch.clamp(clear_target_new - ring_start_old, 0, B)).to(I32)
+    else:
+        state, cleared_to = clear_columns_chunk(state, ring_start_old, clear_target_new, B)
     state.ring_start = cleared_to
     return CompleteResult(state=state, fu_old=fu_old, fu_new=fu_new,
                           num_new_clusters=num_new, cc_rounds=cc_rounds)

@@ -14,8 +14,11 @@ of that stream's slice of the stacked state, and between them launches the
 association kernels K1 and K2 once for all streams
 (``ops/association.py::window_kernels``).  Insertion, segmentation and the
 rest of association still run stream by stream, so their launches grow with
-the number of streams.  The JAX ``Mesh`` argument has no counterpart: the
-sensor axis stays on one card until the port spreads it over several.
+the number of streams.  With a ``Mesh`` (``parallel/mesh.py``) the sensor
+axis is split over its ``dp`` rows, each device stepping the streams of the
+rows it holds; the JAX package's GSPMD split of the ring columns over
+``sp`` is not ported (the port's column-sharded path is
+``parallel/halo.py``).
 
 The ops update a state's ring and table tensors in place, so those writes
 land in the stacked tensors; they re-bind the scalars and the K-slot table
@@ -27,7 +30,7 @@ its slice after the step.  Per stream the step computes exactly what
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -36,6 +39,7 @@ from ..models.step import EgoCalibration, StepInfo, finish_step, insert_and_segm
 from ..ops.association import complete_association, window_arrays, window_kernels
 from ..ops.insertion import FiringBatch
 from ..ops.state import RingState, init_state
+from .mesh import Mesh, ShardedState
 
 FIELDS = tuple(f.name for f in dataclasses.fields(RingState))
 
@@ -56,40 +60,93 @@ def _pick(stacked: NamedTuple, s: int):
     return type(stacked)(*[t[s] for t in stacked])
 
 
+def _step_streams(config: Config, views: List[RingState], batches: List[FiringBatch],
+                  calibs: List[EgoCalibration], batch_cols: int, slab_cols: int,
+                  slab_head: int) -> List[StepInfo]:
+    """One step of each stream of ``views`` (``stream_state`` views, on one
+    device), K1 and K2 launched once for all; returns each stream's
+    ``StepInfo``.  The fields a stream re-bound are copied back into its
+    views, so every result lands in the stacked tensors."""
+    bound = [{n: getattr(v, n) for n in FIELDS} for v in views]
+    pre = [insert_and_segment(config, v, b, c, batch_cols)
+           for v, b, c in zip(views, batches, calibs)]
+    counters = [st.cluster_counter for st, _, _ in pre]
+    wins = [window_arrays(config, st, gcol0, n_cols, batch_cols) for st, gcol0, n_cols in pre]
+    ccs = window_kernels(config, wins)
+    infos = []
+    for s, ((st, gcol0, n_cols), win, cc) in enumerate(zip(pre, wins, ccs)):
+        cres = complete_association(config, st, gcol0, n_cols, batch_cols, win, cc)
+        st, info = finish_step(config, cres, gcol0, n_cols, counters[s], slab_cols, slab_head)
+        for n, t0 in bound[s].items():
+            t = getattr(st, n)
+            if t is not t0:
+                t0.copy_(t)
+        infos.append(info)
+    return infos
+
+
+def _to(tree: NamedTuple, dev: torch.device):
+    return type(tree)(*[t.to(dev) for t in tree])
+
+
 def make_sharded_step(config: Config, batch_cols: int, device=None, slab_cols: int = 0,
-                      slab_head: int = 0):
-    """The multi-sensor step on ``device`` (the card unless the caller names
-    another): ``run(state, batch, calib) -> (state, StepInfo)`` with a
-    stacked state (``stacked_init``), a ``FiringBatch`` and an
-    ``EgoCalibration`` whose leaves carry the leading sensor axis.  The
+                      slab_head: int = 0, mesh: Optional[Mesh] = None):
+    """The multi-sensor step: ``run(state, batch, calib) -> (state,
+    StepInfo)`` with a stacked state (``stacked_init``), a ``FiringBatch`` and
+    an ``EgoCalibration`` whose leaves carry the leading sensor axis.  The
     state is updated in place; every ``StepInfo`` leaf carries the sensor
     axis.  ``slab_cols``/``slab_head`` add the publish slab, as
-    ``pipeline_step`` takes them."""
+    ``pipeline_step`` takes them.
+
+    Without ``mesh`` the step runs on ``device`` (the card unless the caller
+    names another).  With ``mesh`` (``parallel/mesh.py``) the state is a
+    ``ShardedState`` (``shard_pytree(mesh, state, stacked=True)``) whose dp
+    rows hold the streams, and each device steps the streams of the rows it
+    holds, K1 and K2 once for all of them; the ``StepInfo`` lives on the
+    mesh's first device.  The mesh's ``sp`` must be 1: the port shards ring
+    columns only on the halo path (``make_halo_sharded_step(...,
+    stacked=True)``)."""
+    if mesh is not None:
+        return _make_mesh_step(config, batch_cols, slab_cols, slab_head, mesh)
     dev = torch.device("cuda" if device is None else device)
 
     def run(state: RingState, batch: FiringBatch, calib: EgoCalibration):
         if state.x.device.type != dev.type:
             raise ValueError(f"the state is on {state.x.device}, the step on {dev}")
-        batch = FiringBatch(*[t.to(dev) for t in batch])
-        calib = EgoCalibration(*[t.to(dev) for t in calib])
         n_sensors = state.x.shape[0]
-        views = [stream_state(state, s) for s in range(n_sensors)]
-        bound = [{n: getattr(v, n) for n in FIELDS} for v in views]
-        pre = [insert_and_segment(config, views[s], _pick(batch, s), _pick(calib, s), batch_cols)
-               for s in range(n_sensors)]
-        counters = [st.cluster_counter for st, _, _ in pre]
-        wins = [window_arrays(config, st, gcol0, n_cols, batch_cols) for st, gcol0, n_cols in pre]
-        ccs = window_kernels(config, wins)
-        infos = []
-        for s, ((st, gcol0, n_cols), win, cc) in enumerate(zip(pre, wins, ccs)):
-            cres = complete_association(config, st, gcol0, n_cols, batch_cols, win, cc)
-            st, info = finish_step(config, cres, gcol0, n_cols, counters[s], slab_cols,
-                                   slab_head)
-            for n, t0 in bound[s].items():
-                t = getattr(st, n)
-                if t is not t0:
-                    getattr(state, n)[s].copy_(t)
-            infos.append(info)
+        batch, calib = _to(batch, dev), _to(calib, dev)
+        infos = _step_streams(config, [stream_state(state, s) for s in range(n_sensors)],
+                              [_pick(batch, s) for s in range(n_sensors)],
+                              [_pick(calib, s) for s in range(n_sensors)],
+                              batch_cols, slab_cols, slab_head)
         return state, StepInfo(*[torch.stack(xs) for xs in zip(*infos)])
+
+    return run
+
+
+def _make_mesh_step(config: Config, batch_cols: int, slab_cols: int, slab_head: int,
+                    mesh: Mesh):
+    if mesh.shape["sp"] != 1:
+        raise ValueError(
+            f"make_sharded_step: mesh {mesh.shape} splits ring columns over sp; the port's "
+            "column-sharded path is parallel.halo.make_halo_sharded_step(..., stacked=True)")
+    out_dev = mesh.devices[0][0]
+
+    def run(state: ShardedState, batch: FiringBatch, calib: EgoCalibration):
+        if not isinstance(state, ShardedState) or state.mesh != mesh or not state.stacked:
+            raise ValueError("with a mesh the state is shard_pytree(mesh, stacked_init(...), "
+                             "stacked=True)")
+        per_row = state.shards[0][0].x.shape[0]
+        infos = {}
+        for dev in mesh.distinct_devices():
+            rows = [i for i, r in enumerate(mesh.devices) if r[0] == dev]
+            ids = [i * per_row + k for i in rows for k in range(per_row)]
+            views = [stream_state(state.shards[i][0], k) for i in rows for k in range(per_row)]
+            got = _step_streams(config, views, [_to(_pick(batch, s), dev) for s in ids],
+                                [_to(_pick(calib, s), dev) for s in ids],
+                                batch_cols, slab_cols, slab_head)
+            infos.update(zip(ids, got))
+        return state, StepInfo(*[torch.stack([t.to(out_dev) for t in xs])
+                                 for xs in zip(*[infos[s] for s in sorted(infos)])])
 
     return run

@@ -5,9 +5,10 @@ demo_touareg.launch analog).
 Runs N independent sensor streams, the reference's three-node deployment
 (roof VLS-128 + two tilted OS-32, launch/demo_touareg.launch:20-31), either
 as one ``ContinuousClustering`` facade per sensor (host-parallel) or through
-the multi-sensor step (``--sharded``: ``parallel/multi_sensor.py``, one card,
-K1 and K2 launched once per step for all sensors), on ``--device`` (the card
-unless ``--device cpu``).
+the multi-sensor step (``--sharded``: ``parallel/multi_sensor.py`` on a
+``parallel/mesh.py`` mesh whose dp rows split the sensors, K1 and K2
+launched once per step and device for all its sensors), on ``--device``
+(every visible card unless ``--device cpu`` or a numbered card).
 
 Usage:
     python -m continuous_clustering_tpu_torch.tools.multi_sensor_demo \\
@@ -107,11 +108,13 @@ def _run_host_parallel(cfg, rows, revolutions, frames, tilts, dev) -> dict:
 def _run_sharded(cfg, rows, cols, revolutions, frames, dev) -> dict:
     from ..models.step import EgoCalibration
     from ..ops.insertion import FiringBatch
+    from ..parallel.mesh import shard_pytree
     from ..parallel.multi_sensor import make_sharded_step, stacked_init
 
     S = len(frames)
-    state = stacked_init(cfg, rows, S, dev)
-    run = make_sharded_step(cfg, batch_cols=F_BATCH + 32, device=dev)
+    mesh = _demo_mesh(S, dev)
+    state = shard_pytree(mesh, stacked_init(cfg, rows, S, mesh.devices[0][0]), stacked=True)
+    run = make_sharded_step(cfg, batch_cols=F_BATCH + 32, mesh=mesh)
 
     def batch_for(frame, rev, lo, hi):
         firings = frame_to_firings(frame, frame_index=rev)[lo:hi]
@@ -130,7 +133,8 @@ def _run_sharded(cfg, rows, cols, revolutions, frames, dev) -> dict:
         ego_from_sensor=torch.from_numpy(np.stack([np.eye(4)[:3]] * S).astype(np.float32)),
         height_sensor_to_ground=torch.full((S,), -1.7, dtype=torch.float32))
 
-    _synchronize(dev)
+    for d in mesh.distinct_devices():
+        _synchronize(d)
     t0 = time.perf_counter()
     n_chunks = (cols + F_BATCH - 1) // F_BATCH
     clusters = 0
@@ -141,11 +145,23 @@ def _run_sharded(cfg, rows, cols, revolutions, frames, dev) -> dict:
             sbatch = FiringBatch(*[torch.stack(xs) for xs in zip(*batches)])
             state, info = run(state, sbatch, calib)
             clusters += int(info.num_new_clusters.sum())
-    _synchronize(dev)
+    for d in mesh.distinct_devices():
+        _synchronize(d)
     dt = time.perf_counter() - t0
-    # one card: the sensor axis is not spread over devices
-    return {"sensors": S, "mesh": {"dp": 1, "sp": 1}, "total_new_clusters": clusters,
+    return {"sensors": S, "mesh": mesh.shape, "total_new_clusters": clusters,
             "wall_s": round(dt, 2), "mode": "sharded"}
+
+
+def _demo_mesh(n_sensors: int, dev: torch.device):
+    """The (dp, 1) mesh of the sharded demo: the sensors split evenly over
+    as many devices as divide their number; ``cuda`` means every visible
+    card, a numbered card or the CPU holds all sensors."""
+    from ..parallel.mesh import make_mesh
+
+    devices = ([dev] if dev.type != "cuda" or dev.index is not None
+               else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    dp = max(d for d in range(1, len(devices) + 1) if n_sensors % d == 0)
+    return make_mesh(n_devices=dp, dp=dp, devices=devices)
 
 
 if __name__ == "__main__":

@@ -49,7 +49,8 @@ def test_every_port_module_imports_without_jax():
               "utils.profiling", "tools.make_synthetic_dataset", "evaluation.kitti_loader",
               "evaluation.euclidean_clustering", "evaluation.kitti_evaluation",
               "tools.gt_label_generator", "tools.kitti_demo", "io.evaluation_cloud",
-              "tools.visualize", "tools.html_viewer", "tools.plot_workload"):
+              "tools.visualize", "tools.html_viewer", "tools.plot_workload",
+              "parallel.halo", "parallel.mesh", "io.ros_bridge"):
         assert f"continuous_clustering_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -92,6 +93,28 @@ def test_no_port_source_imports_or_reads_the_jax_package():
     assert sorted(p.name for p in (PORT / "csrc" / "host").iterdir()) == [
         "decode_offload.cpp", "insertion.cpp", "kitti.cpp", "ouster.cpp", "readout.cpp",
         "runtime.hpp", "velodyne.cpp"]
+
+
+# JAX package modules the port replaces under another name: the native
+# library's ctypes declarations and build by ``native.py`` and the C++
+# sources under ``csrc/host/``, the Pallas kernels by ``ops/cc_cuda.py``
+REPLACED = {"native/__init__.py": "native.py", "native/build.py": "native.py",
+            "ops/cc_pallas.py": "ops/cc_cuda.py"}
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Every module of the JAX package has a port module under the same
+    relative path, or is one of the declared replacements."""
+    jax_root = ROOT / JAX_PKG
+    missing = []
+    for p in sorted(jax_root.rglob("*.py")):
+        rel = p.relative_to(jax_root).as_posix()
+        target = REPLACED.get(rel, rel)
+        if not (PORT / target).is_file():
+            missing.append(rel)
+    assert not missing, missing
+    assert all((ROOT / JAX_PKG / rel).is_file() for rel in REPLACED)
+    assert (PORT / "csrc" / "host").is_dir()
 
 
 def test_package_surface_matches_the_jax_package():
