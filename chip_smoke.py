@@ -1271,8 +1271,8 @@ def halo_phase(cfg, dev, launches, card, n_rev=3):
     from continuous_clustering_tpu_torch.models.step import pipeline_step_block
     from continuous_clustering_tpu_torch.models.throughput import stack_batches
     from continuous_clustering_tpu_torch.ops.state import init_state
-    from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step, place_state
-    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step
+    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_pytree
     from continuous_clustering_tpu_torch.parallel.multi_sensor import stacked_init
     from continuous_clustering_tpu_torch.tools import bench_setup
 
@@ -1329,7 +1329,7 @@ def halo_phase(cfg, dev, launches, card, n_rev=3):
     mesh4 = make_mesh(devices=[dev] * 4, dp=1)
     run4 = make_halo_sharded_step(cfg, mesh4, B, slab_cols=W, slab_head=W1)
     sh4, infos4, ms4, got4 = drive("halo nsp 4", lambda s, b, p: run4(s, b, p, hsg),
-                                   place_state(mesh4, fresh()), steps)
+                                   shard_pytree(mesh4, fresh(), stacked=False), steps)
     same_infos("nsp 4", infos4, ref_infos)
     check(states_equal(gather_state(sh4), ref), "phase 12 nsp 4: state differs")
     check(int(ref.ring_start) > 0 and not bool(ref.overflow), "phase 12: the clear never ran")
@@ -1345,7 +1345,7 @@ def halo_phase(cfg, dev, launches, card, n_rev=3):
     ref8, ref8_infos, ms_ref8, _ = drive("unsharded first revolution", unsharded((0, 0)),
                                          fresh(), steps[:first])
     sh8, infos8, ms8, got8 = drive("halo nsp 8", lambda s, b, p: run8(s, b, p, hsg),
-                                   place_state(mesh8, fresh()), steps[:first])
+                                   shard_pytree(mesh8, fresh(), stacked=False), steps[:first])
     same_infos("nsp 8", infos8, ref8_infos)
     check(states_equal(gather_state(sh8), ref8), "phase 12 nsp 8: state differs")
     print(f"phase 12: {card}: nsp 8 over the first revolution ({first} steps, no slab): "
@@ -1368,7 +1368,7 @@ def halo_phase(cfg, dev, launches, card, n_rev=3):
     hsg2 = torch.stack([hsg, hsg])
     st, infos_st, ms_st, got_st = drive(
         "halo stacked", lambda s, b, p: run2(s, b, p, hsg2),
-        place_state(mesh2, stacked_init(cfg, FULL_ROWS, 2, dev), stacked=True), both)
+        shard_pytree(mesh2, stacked_init(cfg, FULL_ROWS, 2, dev), stacked=True), both)
     full = gather_state(st)
     for s, (final, infos) in enumerate(refs):
         same_infos(f"stacked stream {s}", [type(i)(*[t[s] for t in i]) for i in infos_st], infos)

@@ -22,7 +22,7 @@ association kernels once for all their streams between them.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -130,17 +130,12 @@ def _publish_slab(config: Config, state: RingState, fu_old, slab_cols: int, head
 
 def pipeline_step_block(config: Config, state: RingState, block: ColumnBlock,
                         seg_poses: SegPoses, hsg: torch.Tensor, batch_cols: int,
-                        slab_cols: int = 0, slab_head: int = 0,
-                        ring_capacity: Optional[int] = None, skip_clear: bool = False):
+                        slab_cols: int = 0, slab_head: int = 0):
     """Ingest a dense finished-column block, then segmentation, association
-    and completion.  Updates ``state`` in place; returns (state, StepInfo).
-    ``ring_capacity``/``skip_clear`` run the step on the halo path's
-    window-sized scratch ring (``parallel/halo.py``; see
-    ``ops.association.complete_association``)."""
+    and completion.  Updates ``state`` in place; returns (state, StepInfo)."""
     state = ingest_and_segment(config, state, block, seg_poses, hsg, batch_cols)
     counter_old = state.cluster_counter
-    cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols,
-                                  ring_capacity=ring_capacity, skip_clear=skip_clear)
+    cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols)
     return finish_step(config, cres, block.gcol0, block.n_cols, counter_old, slab_cols,
                        slab_head)
 

@@ -226,15 +226,12 @@ def neighbor_stats(config: Config, state: RingState, win: Window,
 
 
 def associate_and_complete(config: Config, state: RingState, gcol0, n_cols,
-                           batch_size: int, *, ring_capacity: Optional[int] = None,
-                           skip_clear: bool = False) -> CompleteResult:
+                           batch_size: int) -> CompleteResult:
     """Association (CC update) and completion for one column batch; updates
-    the ring and the state in place and returns the frontier results.
-    ``ring_capacity``/``skip_clear``: see ``complete_association``."""
+    the ring and the state in place and returns the frontier results."""
     win = window_arrays(config, state, gcol0, n_cols, batch_size)
     cc, = window_kernels(config, [win])
-    return complete_association(config, state, gcol0, n_cols, batch_size, win, cc,
-                                ring_capacity=ring_capacity, skip_clear=skip_clear)
+    return complete_association(config, state, gcol0, n_cols, batch_size, win, cc)
 
 
 def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_size: int,

@@ -49,7 +49,7 @@ from ..ops.association import complete_association, window_arrays, window_kernel
 from ..ops.ingest import ColumnBlock
 from ..ops.readout import join_tables
 from ..ops.state import CELL_FIELDS, CLEAR_VALUES, RingState
-from .mesh import FIELDS, Mesh, ShardedState, shard_pytree
+from .mesh import FIELDS, Mesh, ShardedState
 from .multi_sensor import _pick, stream_state
 
 I32 = torch.int32
@@ -118,7 +118,12 @@ def halo_step_local(config: Config, streams: Sequence[Sequence[RingState]],
     """Steps 1-2 and the slot translation of step 3 for ``streams`` (each a
     list of column shards, shard j owning ring columns [j w, (j + 1) w)) on
     ``device``, K1 and K2 launched once for all of them.  Reads the shards,
-    writes nothing to them."""
+    writes nothing to them.
+
+    Unlike the JAX function of this name, which is the body of one shard
+    inside ``shard_map`` (one local shard in, that shard's new state out),
+    this takes whole streams of shards and a device, and leaves the
+    write-back to ``make_halo_sharded_step``."""
     H = config.clustering.max_steps_in_row
     B = batch_cols
     WS = H + B + WS_PAD
@@ -190,7 +195,8 @@ def make_halo_sharded_step(config: Config, mesh: Mesh, batch_cols: int, stacked:
                            slab_cols: int = 0, slab_head: int = 0):
     """The column-sharded step: ``run(state, block, seg_poses, hsg) ->
     (state, StepInfo)`` with ``state`` a ``ShardedState`` on ``mesh``
-    (``place_state``), updated in place.  ``stacked`` adds a leading sensor
+    (``mesh.shard_pytree(mesh, state, stacked)``, the JAX module's
+    ``place_state``), updated in place.  ``stacked`` adds a leading sensor
     axis split over dp to the state, the block, the poses, ``hsg`` and the
     returned ``StepInfo``.  The ``StepInfo`` lives on the mesh's first
     device.  ``slab_cols``/``slab_head`` add the publish slab, as
@@ -203,7 +209,7 @@ def make_halo_sharded_step(config: Config, mesh: Mesh, batch_cols: int, stacked:
     def run(state: ShardedState, block: ColumnBlock, segp: SegPoses, hsg: torch.Tensor):
         if state.mesh != mesh or state.stacked != stacked:
             raise ValueError("the state is not placed on this step's mesh "
-                             f"(stacked={stacked}); use place_state")
+                             f"(stacked={stacked}); use shard_pytree(mesh, state, stacked)")
         rows = [_stream_shards(state, i) for i in range(len(mesh.devices))]
 
         def ids(i: int) -> List[int]:
@@ -256,9 +262,3 @@ def make_halo_sharded_step(config: Config, mesh: Mesh, batch_cols: int, stacked:
 
     return run
 
-
-def place_state(mesh: Mesh, state: RingState, stacked: bool = False) -> ShardedState:
-    """``state`` placed on ``mesh`` for the halo step: ring columns split
-    over sp, sensors (when ``stacked``) over dp, everything else
-    replicated."""
-    return shard_pytree(mesh, state, stacked)

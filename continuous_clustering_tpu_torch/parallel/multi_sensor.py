@@ -7,18 +7,18 @@ package runs ``pipeline_step`` under ``jax.vmap`` over a leading sensor axis,
 so each Pallas kernel becomes one launch for all sensors, and shards that
 axis over a device mesh.
 
-The port runs on one card.  The state carries every ``RingState`` field with
-a leading sensor axis (``stacked_init``).  A step runs, per stream, the parts
+The state carries every ``RingState`` field with a leading sensor axis
+(``stacked_init``).  A step runs, per stream, the parts
 of ``models/step.py::pipeline_step`` before and after association on views
 of that stream's slice of the stacked state, and between them launches the
 association kernels K1 and K2 once for all streams
 (``ops/association.py::window_kernels``).  Insertion, segmentation and the
 rest of association still run stream by stream, so their launches grow with
-the number of streams.  With a ``Mesh`` (``parallel/mesh.py``) the sensor
-axis is split over its ``dp`` rows, each device stepping the streams of the
-rows it holds; the JAX package's GSPMD split of the ring columns over
-``sp`` is not ported (the port's column-sharded path is
-``parallel/halo.py``).
+the number of streams.  The sensor axis is split over the ``dp`` rows of
+a ``Mesh`` (``parallel/mesh.py``), each device stepping the streams of the
+rows it holds; a state on one device is the one shard of a one-device
+mesh.  The JAX package's GSPMD split of the ring columns over ``sp`` is not
+ported (the port's column-sharded path is ``parallel/halo.py``).
 
 The ops update a state's ring and table tensors in place, so those writes
 land in the stacked tensors; they re-bind the scalars and the K-slot table
@@ -98,55 +98,53 @@ def make_sharded_step(config: Config, batch_cols: int, device=None, slab_cols: i
     axis.  ``slab_cols``/``slab_head`` add the publish slab, as
     ``pipeline_step`` takes them.
 
-    Without ``mesh`` the step runs on ``device`` (the card unless the caller
-    names another).  With ``mesh`` (``parallel/mesh.py``) the state is a
-    ``ShardedState`` (``shard_pytree(mesh, state, stacked=True)``) whose dp
-    rows hold the streams, and each device steps the streams of the rows it
-    holds, K1 and K2 once for all of them; the ``StepInfo`` lives on the
-    mesh's first device.  The mesh's ``sp`` must be 1: the port shards ring
-    columns only on the halo path (``make_halo_sharded_step(...,
-    stacked=True)``)."""
-    if mesh is not None:
-        return _make_mesh_step(config, batch_cols, slab_cols, slab_head, mesh)
-    dev = torch.device("cuda" if device is None else device)
-
-    def run(state: RingState, batch: FiringBatch, calib: EgoCalibration):
-        if state.x.device.type != dev.type:
-            raise ValueError(f"the state is on {state.x.device}, the step on {dev}")
-        n_sensors = state.x.shape[0]
-        batch, calib = _to(batch, dev), _to(calib, dev)
-        infos = _step_streams(config, [stream_state(state, s) for s in range(n_sensors)],
-                              [_pick(batch, s) for s in range(n_sensors)],
-                              [_pick(calib, s) for s in range(n_sensors)],
-                              batch_cols, slab_cols, slab_head)
-        return state, StepInfo(*[torch.stack(xs) for xs in zip(*infos)])
-
-    return run
-
-
-def _make_mesh_step(config: Config, batch_cols: int, slab_cols: int, slab_head: int,
-                    mesh: Mesh):
-    if mesh.shape["sp"] != 1:
+    With ``mesh`` (``parallel/mesh.py``) the state is a ``ShardedState``
+    (``shard_pytree(mesh, state, stacked=True)``) whose dp rows hold the
+    streams, and each device steps the streams of the rows it holds, K1 and
+    K2 once for all of them; the ``StepInfo`` lives on the mesh's first
+    device.  The mesh's ``sp`` must be 1: the port shards ring columns only
+    on the halo path (``make_halo_sharded_step(..., stacked=True)``).
+    Without ``mesh`` the state is a stacked ``RingState`` on ``device`` (the
+    card unless the caller names another), stepped as the one shard of a
+    one-device mesh."""
+    if mesh is not None and mesh.shape["sp"] != 1:
         raise ValueError(
             f"make_sharded_step: mesh {mesh.shape} splits ring columns over sp; the port's "
             "column-sharded path is parallel.halo.make_halo_sharded_step(..., stacked=True)")
-    out_dev = mesh.devices[0][0]
+    dev = torch.device("cuda" if device is None else device)
 
-    def run(state: ShardedState, batch: FiringBatch, calib: EgoCalibration):
-        if not isinstance(state, ShardedState) or state.mesh != mesh or not state.stacked:
-            raise ValueError("with a mesh the state is shard_pytree(mesh, stacked_init(...), "
-                             "stacked=True)")
-        per_row = state.shards[0][0].x.shape[0]
-        infos = {}
-        for dev in mesh.distinct_devices():
-            rows = [i for i, r in enumerate(mesh.devices) if r[0] == dev]
-            ids = [i * per_row + k for i in rows for k in range(per_row)]
-            views = [stream_state(state.shards[i][0], k) for i in rows for k in range(per_row)]
-            got = _step_streams(config, views, [_to(_pick(batch, s), dev) for s in ids],
-                                [_to(_pick(calib, s), dev) for s in ids],
-                                batch_cols, slab_cols, slab_head)
-            infos.update(zip(ids, got))
-        return state, StepInfo(*[torch.stack([t.to(out_dev) for t in xs])
-                                 for xs in zip(*[infos[s] for s in sorted(infos)])])
+    def run(state, batch: FiringBatch, calib: EgoCalibration):
+        if mesh is not None:
+            if not isinstance(state, ShardedState) or state.mesh != mesh or not state.stacked:
+                raise ValueError("with a mesh the state is shard_pytree(mesh, "
+                                 "stacked_init(...), stacked=True)")
+            return state, _step_mesh(config, state, batch, calib, batch_cols, slab_cols,
+                                     slab_head)
+        if state.x.device.type != dev.type:
+            raise ValueError(f"the state is on {state.x.device}, the step on {dev}")
+        one = Mesh(((state.x.device,),))
+        return state, _step_mesh(config, ShardedState(one, True, [[state]]), batch, calib,
+                                 batch_cols, slab_cols, slab_head)
 
     return run
+
+
+def _step_mesh(config: Config, state: ShardedState, batch: FiringBatch, calib: EgoCalibration,
+               batch_cols: int, slab_cols: int, slab_head: int) -> StepInfo:
+    """One step of every stream of a stacked ``state`` whose mesh has sp 1:
+    each device steps the streams of the dp rows it holds.  Returns the
+    stacked ``StepInfo`` on the mesh's first device."""
+    mesh = state.mesh
+    per_row = state.shards[0][0].x.shape[0]
+    infos = {}
+    for dev in mesh.distinct_devices():
+        rows = [i for i, r in enumerate(mesh.devices) if r[0] == dev]
+        ids = [i * per_row + k for i in rows for k in range(per_row)]
+        views = [stream_state(state.shards[i][0], k) for i in rows for k in range(per_row)]
+        got = _step_streams(config, views, [_to(_pick(batch, s), dev) for s in ids],
+                            [_to(_pick(calib, s), dev) for s in ids],
+                            batch_cols, slab_cols, slab_head)
+        infos.update(zip(ids, got))
+    out_dev = mesh.devices[0][0]
+    return StepInfo(*[torch.stack([t.to(out_dev) for t in xs])
+                      for xs in zip(*[infos[s] for s in sorted(infos)])])

@@ -8,8 +8,13 @@ flagging a reset, the stage subset of ``get_columns``) and of
 Tolerance: names, counts, flags and integer fields exactly; the
 ``get_columns`` points' f32 coordinates exactly (both facades publish the
 stored ring values); the azimuths read after a rebase within the JAX
-test's 1.0 rad of their column's absolute azimuth, and within 1e-4 rad of
-the same points read in a run that never rebases.
+test's 1.0 rad of their column's absolute azimuth, within ``ATAN2_ULPS``
+(1) f32 ulp at each point's absolute azimuth of the JAX facade's reads of
+the same points on the same firings (XLA's f32 ``arctan2`` in the JAX
+insertion is up to 1 ulp from the once-rounded f64 one the port uses,
+``continuous_clustering_tpu_torch/ops/insertion.py``; the continuous
+azimuth carries that ulp, and a rebase subtracts whole turns exactly), and
+within 1e-4 rad of the same points read in a run that never rebases.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from continuous_clustering_tpu_torch.models.continuous_clustering import Continu
 
 from .test_pipeline import small_config
 from .test_torch_step import one_torch_thread  # noqa: F401
+
+ATAN2_ULPS = 1
 
 
 @pytest.fixture
@@ -134,17 +141,22 @@ def test_get_columns_stage_subset(needs_gxx):
 NUM_ROWS, NUM_COLS = 16, 110
 
 
-def _rebase_run(single_threaded: bool, rebase_after: int):
-    """tests/test_rebase.py::_run_checking_slab_reads on the port: 8
-    revolutions, reading the freshest published columns right after each
-    rebase.  Returns {uidx: azimuth} of those reads (with no rebase: of
-    every published column), and the rebases seen."""
+def _rebase_run(single_threaded: bool, rebase_after: int, facade: str = "port"):
+    """tests/test_rebase.py::_run_checking_slab_reads on the port's facade
+    (or, with ``facade="jax"``, the JAX package's): 8 revolutions, reading
+    the freshest published columns right after each rebase.  Returns
+    {uidx: azimuth} of those reads (with no rebase: of every published
+    column), and the rebases seen."""
     cfg = small_config()
     cfg = cfg.replace(
         range_image=cfg.range_image.__class__(num_columns=NUM_COLS, ring_buffer_revolutions=4),
         general=dataclasses.replace(cfg.general, is_single_threaded=single_threaded))
-    pipe = ContinuousClustering(config_from_dataclass(cfg), firing_batch_size=55,
-                                rebase_after_rotations=rebase_after, device="cpu")
+    if facade == "jax":
+        pipe = JaxContinuousClustering(cfg, firing_batch_size=55,
+                                       rebase_after_rotations=rebase_after)
+    else:
+        pipe = ContinuousClustering(config_from_dataclass(cfg), firing_batch_size=55,
+                                    rebase_after_rotations=rebase_after, device="cpu")
     pipe.reset(NUM_ROWS)
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
     scene = make_scene(num_boxes=5, seed=4, spread=15.0)
@@ -191,10 +203,16 @@ def _rebase_run(single_threaded: bool, rebase_after: int):
 def test_slab_invalidated_on_rebase(needs_gxx, single_threaded):
     """A publish slab cached (or in flight) before a rebase is not served
     with the new azimuth origin afterwards; the azimuths read right after
-    each rebase are those a run without rebases publishes for the same
-    points."""
+    each rebase are the JAX facade's reads of the same points on the same
+    firings, and those a run without rebases publishes."""
     after, rebases = _rebase_run(single_threaded, rebase_after=2)
     assert rebases >= 1, "rebase never triggered"
+    jafter, jrebases = _rebase_run(single_threaded, rebase_after=2, facade="jax")
+    assert rebases == jrebases and set(after) == set(jafter)
+    port_az = np.array([after[u] for u in sorted(after)])
+    jax_az = np.array([jafter[u] for u in sorted(after)])
+    ulps = np.abs(port_az - jax_az) / np.spacing(np.abs(port_az).astype(np.float32))
+    assert ulps.max() <= ATAN2_ULPS, f"differs from the JAX facade's by {ulps.max()} ulp"
     plain, none = _rebase_run(single_threaded, rebase_after=10_000)
     assert none == 0 and after and set(after) <= set(plain)
     worst = max(abs(az - plain[u]) for u, az in after.items())

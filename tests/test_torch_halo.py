@@ -51,7 +51,7 @@ from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firin
 from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
 from continuous_clustering_tpu_torch.models.step import META_CC_ROUNDS, pipeline_step_block
 from continuous_clustering_tpu_torch.ops.state import init_state
-from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step, place_state
+from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step
 from continuous_clustering_tpu_torch.parallel.mesh import (Mesh, ShardedState, gather_state,
                                                            make_mesh, shard_pytree)
 from continuous_clustering_tpu_torch.parallel.multi_sensor import (make_sharded_step,
@@ -136,7 +136,7 @@ def test_halo_step_matches_jax_and_unsharded(nsp, num_rows, slab):
     jrun = jax_halo_step(jcfg, jax_mesh(1, nsp), B, slab_cols=sc, slab_head=sh)
     js = jax_place_state(jax_mesh(1, nsp), jax_init(jcfg, num_rows))
     run = make_halo_sharded_step(cfg, cpu_mesh(1, nsp), B, slab_cols=sc, slab_head=sh)
-    ts = place_state(cpu_mesh(1, nsp), init_state(cfg, num_rows, "cpu"))
+    ts = shard_pytree(cpu_mesh(1, nsp), init_state(cfg, num_rows, "cpu"), stacked=False)
     us = init_state(cfg, num_rows, "cpu")
     published = 0
     for k, (blk, segp) in enumerate(steps):
@@ -169,7 +169,7 @@ def test_halo_step_stacked_dp_matches_jax_and_unsharded():
     mesh = make_mesh(devices=["cpu"] * 8)
     assert mesh.shape == {"dp": 2, "sp": nsp}
     run = make_halo_sharded_step(cfg, mesh, B, stacked=True)
-    ts = place_state(mesh, stacked_init(cfg, num_rows, 2, "cpu"), stacked=True)
+    ts = shard_pytree(mesh, stacked_init(cfg, num_rows, 2, "cpu"), stacked=True)
     us = [init_state(cfg, num_rows, "cpu") for _ in range(2)]
     for k in range(n):
         pairs = [s1[k], s2[k]]
@@ -193,7 +193,7 @@ def test_halo_step_stacked_dp_matches_jax_and_unsharded():
 
 def test_mesh_rules_and_state_round_trip():
     """make_mesh follows the JAX rule (dp = 2 for an even count above 1);
-    place_state/gather_state round-trip a state, stacked or not, with every
+    shard_pytree/gather_state round-trip a state, stacked or not, with every
     shard owning its slice on its device; no card, no default mesh."""
     shapes = {n: make_mesh(devices=["cpu"] * n).shape for n in (1, 3, 6, 8)}
     assert shapes == {1: {"dp": 1, "sp": 1}, 3: {"dp": 1, "sp": 3}, 6: {"dp": 2, "sp": 3},
@@ -218,7 +218,7 @@ def test_mesh_rules_and_state_round_trip():
     for state, stacked, (dp, nsp) in ((one, False, (2, 4)), (two, True, (2, 4)),
                                       (one, False, (1, 8))):
         mesh = cpu_mesh(dp, nsp)
-        sh = place_state(mesh, state, stacked=stacked)
+        sh = shard_pytree(mesh, state, stacked=stacked)
         assert isinstance(sh, ShardedState) and len(sh.shards) == dp
         lead = (1,) if stacked else ()
         for row in sh.shards:
@@ -230,7 +230,7 @@ def test_mesh_rules_and_state_round_trip():
         assert_exact(state_to_numpy(state), back, f"round trip dp={dp} sp={nsp}")
     assert shard_pytree(cpu_mesh(2, 1), two).shards[1][0].x.eq(7.0).all()
     with pytest.raises(ValueError, match="does not split"):
-        place_state(cpu_mesh(1, 3), one)
+        shard_pytree(cpu_mesh(1, 3), one, stacked=False)
 
 
 def test_multi_sensor_step_on_a_dp_mesh_matches_jax():
@@ -296,7 +296,7 @@ def test_halo_clear_keeps_fresher_cells_as_the_unsharded_clear():
             cols = torch.tensor([planted % rc, (planted + 1) % rc])
             us.gcol[:4, cols] = torch.tensor([planted + rc, planted + 1 + rc], dtype=torch.int32)
             us.x[:4, cols] = 12.5
-            ts = place_state(mesh, us)
+            ts = shard_pytree(mesh, us, stacked=False)
         us, uinfo = pipeline_step_block(cfg, us, blk, segp, hsg, B)
         if planted is not None:
             ts, tinfo = run(ts, blk, segp, hsg)

@@ -36,8 +36,8 @@ def test_halo_step_on_the_card_equals_the_unsharded_step():
     from continuous_clustering_tpu_torch.models.step import pipeline_step_block
     from continuous_clustering_tpu_torch.ops import cc_cuda
     from continuous_clustering_tpu_torch.ops.state import init_state
-    from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step, place_state
-    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from continuous_clustering_tpu_torch.parallel.halo import make_halo_sharded_step
+    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_pytree
 
     dev = torch.device("cuda", 0)
     cfg = kitti_config()
@@ -60,7 +60,7 @@ def test_halo_step_on_the_card_equals_the_unsharded_step():
     B, hsg = pipe._batch_B, torch.tensor(np.float32(-1.7), device=dev)
     mesh = make_mesh(devices=[dev] * 4, dp=1)
     run = make_halo_sharded_step(cfg, mesh, B, slab_cols=128, slab_head=64)
-    sh, ref = place_state(mesh, init_state(cfg, 32, dev)), init_state(cfg, 32, dev)
+    sh, ref = shard_pytree(mesh, init_state(cfg, 32, dev), stacked=False), init_state(cfg, 32, dev)
     for k, (blk, segp) in enumerate(steps):
         ref, rinfo = pipeline_step_block(cfg, ref, blk, segp, hsg, B, 128, 64)
         cc_cuda.reset_launch_counts()
