@@ -36,7 +36,8 @@ side by side), then:
    scene runs twice and must give the same checksum;
 8. runs the CC sweep's probe variants through their tool
    (``tools/sweep_probe.py``) at upper = 1, 7 and 21, each against its
-   twin, and times each kernel;
+   twin, and times each kernel at upper = 21 (device time, with the host's
+   enqueue, the plain twin) beside its bound;
 9. streams three sensors of the KITTI configuration, each its own scene
    for 2 revolutions, through the multi-sensor step
    (``parallel/multi_sensor.py``, K1 and K2 launched once per step for all
@@ -68,13 +69,23 @@ side by side), then:
     publish slab; nsp 8 over the first revolution; two streams over
     dp 2 x sp 4 in one stacked step.  Every ring field, the slot table, the
     scalars and every step's meta, slab and tail must equal the unsharded
-    run's; prints ms per step of each beside the unsharded step's.
+    run's; prints ms per step of each beside the unsharded step's;
+13. runs device insertion into column-sharded rings: phase 12's two scenes
+    as firing batches (384) over the first revolution through the
+    multi-sensor step on a dp 2 x sp 4 mesh, every shard on the card
+    (``make_sharded_step(mesh=...)``, the firing loop on each stream's
+    gathered ``distance`` plane, each winner written to the shard that owns
+    its column), slab 128 / 64, against the unsharded
+    ``make_sharded_step(device=...)`` on the same batches; then dp 1 x sp 8
+    over the first 3 steps.  Every step's meta, slab and tail and every
+    state field must be equal; prints ms per step of both and the device
+    kernels of one step of each under the profiler.
 
-Phases 3 to 12 drive the port's paths; the kernels' launch counters are set
-to 0 just before each and read just after, and each of phases 3-7 and 9-12
-must have launched K1 and K2 (phases 9 and 12 once per step), phase 8 the
-probe kernel.  Every phase raises on failure.  The line before the last is a JSON
-object with one entry per kernel (launches summed over phases 3-12;
+Phases 3 to 13 drive the port's paths; the kernels' launch counters are set
+to 0 just before each and read just after, and each of phases 3-7 and 9-13
+must have launched K1 and K2 (phases 9, 12 and 13 once per step), phase 8
+the probe kernel.  Every phase raises on failure.  The line before the last is a JSON
+object with one entry per kernel (launches summed over phases 3-13;
 ``max_abs_err`` over every
 comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
 without; K1 and K2 on the KITTI window, the probe's slowest variant at
@@ -431,6 +442,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    t_start = time.perf_counter()
 
     # ---- phase 1: card, builds ----------------------------------------------
     smi = subprocess.run(
@@ -772,6 +784,9 @@ def main() -> int:
     # ---- phase 12: the column-sharded halo step ------------------------------
     halo_phase(cfg, dev, launches, card)
 
+    # ---- phase 13: device insertion into column-sharded rings ---------------
+    sharded_insertion_phase(cfg, dev, launches, card)
+
     # ms: CUDA events around the launch as the host issues it, the host's
     # enqueue included; device_ms: the device's time alone
     kit, pt = k2["kitti"], probe_t[slowest]
@@ -793,6 +808,7 @@ def main() -> int:
          "plain_ms": timing[name][2], "bound_ms": timing[name][3]["bound_ms"],
          "bound_by": timing[name][3]["bound_by"], "library_ms": None}
         for name in ("edge_bits", "window_cc", "sweep_probe")]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, builds included")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -882,6 +898,43 @@ def states_equal(a, b) -> bool:
         elif not torch.equal(x, y):
             return False
     return True
+
+
+def drive_steps(launches, label, step, state, items, keep=()):
+    """``state, info = step(state, item)`` over ``items``, the launch
+    counters set to 0 just before and read just after; K1 and K2 must
+    launch once per item.  Returns (state, infos, ms per step, launches, and
+    a copy of the (unsharded) state after each number of steps in
+    ``keep``)."""
+    import torch
+
+    from continuous_clustering_tpu_torch.ops.state import copy_state
+
+    infos, kept = [], {}
+    torch.cuda.synchronize()
+    launches.start()
+    t0 = time.perf_counter()
+    for k, item in enumerate(items):
+        state, info = step(state, item)
+        infos.append(info)
+        if k + 1 in keep:
+            kept[k + 1] = copy_state(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / len(items) * 1e3
+    got = launches.stop(label)
+    check(got["edge_bits"] == got["window_cc"] == len(items),
+          f"{label}: launches {got}, {len(items)} steps")
+    return state, infos, ms, got, kept
+
+
+def check_same_infos(label, infos, refs):
+    """Every step's meta, slab and slab tail equal the reference run's."""
+    import torch
+
+    check(len(infos) == len(refs), f"{label}: {len(infos)} steps, {len(refs)}")
+    for k, (a, b) in enumerate(zip(infos, refs)):
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{label}: step {k} meta or slab differs from the unsharded step")
 
 
 def multi_stream_phase(cfg, dev, launches, card, phase5, n_streams=3, n_rev=2):
@@ -1294,28 +1347,13 @@ def halo_phase(cfg, dev, launches, card, n_rev=3):
         return steps, first, pipe._batch_B
 
     def drive(label, step, state, steps):
-        """``state, info = step(state, block, seg_poses)`` over ``steps``,
-        the launch counters set to 0 just before and read just after; returns
-        (state, infos, ms per step, launches)."""
-        infos = []
-        torch.cuda.synchronize()
-        launches.start()
-        t0 = time.perf_counter()
-        for blk, segp in steps:
-            state, info = step(state, blk, segp)
-            infos.append(info)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / len(steps) * 1e3
-        got = launches.stop(f"phase 12 {label}")
-        check(got["edge_bits"] == got["window_cc"] == len(steps),
-              f"phase 12 {label}: launches {got}, {len(steps)} steps")
-        return state, infos, ms, got
+        """``state, info = step(state, block, seg_poses)`` over ``steps``;
+        returns (state, infos, ms per step, launches)."""
+        return drive_steps(launches, f"phase 12 {label}", lambda s, bp: step(s, *bp), state,
+                           steps)[:4]
 
     def same_infos(label, infos, refs):
-        check(len(infos) == len(refs), f"phase 12 {label}: {len(infos)} steps, {len(refs)}")
-        for k, (a, b) in enumerate(zip(infos, refs)):
-            check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                  f"phase 12 {label}: step {k} meta or slab differs from the unsharded step")
+        check_same_infos(f"phase 12 {label}", infos, refs)
 
     steps, first, B = capture(5, 14)
 
@@ -1378,6 +1416,99 @@ def halo_phase(cfg, dev, launches, card, n_rev=3):
           f"ms/step ({n} steps) vs {ms_one:.2f} ms per unsharded stream step; each stream's "
           f"state and meta equal its unsharded run; launches {got_st} (once per stacked step)")
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def sharded_insertion_phase(cfg, dev, launches, card, n_rev=1, sp8_steps=3):
+    """Phase 13: the device-insertion multi-sensor step on a dp 2 x sp 4 mesh,
+    every shard on ``dev`` (``make_sharded_step(mesh=...)``,
+    ``parallel/halo.py::insertion_sharded_step``): two KITTI-configuration
+    streams (phase 12's scenes, ring of 10 revolutions, 5,500 columns a
+    shard), firing batch 384, slab 128 / 64, over the first revolution,
+    against the unsharded ``make_sharded_step(device=dev)`` on the same
+    stacked batches; then dp 1 x sp 8 over the first ``sp8_steps`` steps.
+    Every step's meta, slab and slab tail and, after the run, every ring
+    field, the slot table and the scalars must be equal; K1 and K2 launch
+    once a step.  One step of each is counted under the profiler."""
+    import torch
+
+    from continuous_clustering_tpu_torch.models.step import (META_CC_FAILED, META_NUM_NEW,
+                                                             META_OVERFLOW, EgoCalibration)
+    from continuous_clustering_tpu_torch.models.throughput import stack_batches
+    from continuous_clustering_tpu_torch.ops.insertion import make_firing_batch
+    from continuous_clustering_tpu_torch.ops.state import copy_state
+    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_pytree
+    from continuous_clustering_tpu_torch.parallel.multi_sensor import (make_sharded_step,
+                                                                       stacked_init)
+
+    t_phase = time.perf_counter()
+    n_cols, rc = cfg.range_image.num_columns, cfg.ring_buffer_max_columns
+    eye = np.eye(4)
+    streams = [kitti_stream(FULL_ROWS, n_cols, n_rev, seed=5, num_boxes=14),
+               kitti_stream(FULL_ROWS, n_cols, n_rev, seed=6, num_boxes=15)]
+    n_steps = -(-len(streams[0]) // B_FIRINGS)
+    ref = make_facade(cfg, FULL_ROWS, dev, B_FIRINGS, insertion="device")
+    B, calib, (W, W1) = ref._batch_B, ref._make_calib(), (128, 64)
+    scalib = EgoCalibration(*[torch.stack([t] * 2) for t in calib])
+    sbatches = [stack_batches([make_firing_batch(f[k * B_FIRINGS:(k + 1) * B_FIRINGS],
+                                                 [eye] * len(f[k * B_FIRINGS:(k + 1) * B_FIRINGS]),
+                                                 B_FIRINGS, FULL_ROWS, dev) for f in streams])
+                for k in range(n_steps)]
+
+    def drive(label, run, state, steps, keep=()):
+        return drive_steps(launches, f"phase 13 {label}", lambda s, b: run(s, b, scalib),
+                           state, steps, keep)
+
+    def same(label, infos, refs, state, want):
+        check_same_infos(f"phase 13 {label}", infos, refs)
+        check(states_equal(gather_state(state), want), f"phase 13 {label}: state differs")
+
+    def profile(run, state, batch):
+        launches.start()
+        try:
+            prof = device_profile(lambda: run(state, batch, scalib))
+        except RuntimeError as e:  # the profiler is an observer: its failure fails no check
+            print(f"phase 13: torch.profiler failed: {e}")
+            prof = None
+        launches.stop("phase 13 profile")
+        return "no device time" if prof is None else f"{prof[0]} device kernels"
+
+    one_run = make_sharded_step(cfg, B, device=dev, slab_cols=W, slab_head=W1)
+    one = stacked_init(cfg, FULL_ROWS, 2, dev)
+    state_mb = sum(t.numel() * t.element_size() for t in vars(one).values()) / 1e6
+    one, refs, ms_one, got_one, kept = drive("unsharded", one_run, one, sbatches,
+                                             keep=(sp8_steps, n_steps - 1))
+    one_early, one_before = kept[sp8_steps], kept[n_steps - 1]
+    metas = torch.stack([i.meta for i in refs]).cpu()
+    check(not bool(metas[:, :, [META_OVERFLOW, META_CC_FAILED]].any()), "overflow or cc_failed")
+    check(int(metas[:, :, META_NUM_NEW].sum()) > 0, "phase 13: nothing was published")
+
+    mesh = make_mesh(devices=[dev] * 8)
+    check(mesh.shape == {"dp": 2, "sp": 4}, f"phase 13: mesh {mesh.shape}")
+    run = make_sharded_step(cfg, B, slab_cols=W, slab_head=W1, mesh=mesh)
+    sh = shard_pytree(mesh, stacked_init(cfg, FULL_ROWS, 2, dev), stacked=True)
+    sh, infos, ms_sh, got_sh, _ = drive("dp 2 x sp 4", run, sh, sbatches)
+    same("dp 2 x sp 4", infos, refs, sh, one)
+    check(all(t.shape[-1] == rc // 4 for row in sh.shards for part in row
+              for t in (part.x, part.distance, part.slot)), "phase 13: a shard is not rc / 4 wide")
+    prof_sh = profile(run, shard_pytree(mesh, one_before, stacked=True), sbatches[-1])
+    prof_one = profile(one_run, copy_state(one_before), sbatches[-1])
+    print(f"phase 13: {card}: device insertion, 2 streams of {FULL_ROWS} x {n_cols} (ring {rc} "
+          f"columns, {rc // 4} a shard, B {B}, slab {W}/{W1}, {state_mb:.0f} MB of state for "
+          f"both, {n_rev} revolution, {n_steps} steps) on dp 2 x sp 4: {ms_sh:.2f} ms/step vs "
+          f"the unsharded step {ms_one:.2f} ms/step; every step's meta, slab and tail and every "
+          f"ring field, the slot table and the scalars equal; launches sharded {got_sh}, "
+          f"unsharded {got_one}; one step under the profiler: sharded {prof_sh}, unsharded "
+          f"{prof_one}")
+    del sh, one_before
+
+    mesh8 = make_mesh(devices=[dev] * 8, dp=1)
+    run8 = make_sharded_step(cfg, B, slab_cols=W, slab_head=W1, mesh=mesh8)
+    sh8 = shard_pytree(mesh8, stacked_init(cfg, FULL_ROWS, 2, dev), stacked=True)
+    sh8, infos8, ms8, got8, _ = drive("dp 1 x sp 8", run8, sh8, sbatches[:sp8_steps])
+    same("dp 1 x sp 8", infos8, refs[:sp8_steps], sh8, one_early)
+    print(f"phase 13: {card}: dp 1 x sp 8 ({rc // 8} columns a shard) over the first "
+          f"{sp8_steps} steps: {ms8:.2f} ms/step; state and meta equal; launches {got8}")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
 
 
 def serpentine_firings():

@@ -17,7 +17,10 @@ reads them with a single device-to-host copy.
 ``ingest_and_segment`` first; the multi-sensor step
 (``parallel/multi_sensor.py``) and the column-sharded halo step
 (``parallel/halo.py``) run the same parts per stream and launch the
-association kernels once for all their streams between them.
+association kernels once for all their streams between them.  The
+column-sharded device-insertion step runs the insertion's two halves
+(``ops/insertion.py``) itself and then ``frontier_and_poses``, the part of
+``insert_and_segment`` between insertion and segmentation.
 """
 
 from __future__ import annotations
@@ -145,12 +148,18 @@ def ingest_and_segment(config: Config, state: RingState, block: ColumnBlock,
     """The part of ``pipeline_step_block`` before association: ingest the
     block and segment the ground.  Updates ``state`` in place."""
     state = ingest_columns(config, state, block, batch_cols)
-    seg_in = SegmentInputs(
+    return ground_segment_columns(config, state, block_segment_inputs(block, seg_poses, hsg),
+                                  batch_cols)
+
+
+def block_segment_inputs(block: ColumnBlock, seg_poses: SegPoses,
+                         hsg: torch.Tensor) -> SegmentInputs:
+    """The segmentation inputs of a host-inserted block's columns."""
+    return SegmentInputs(
         gcol0=block.gcol0, n_cols=block.n_cols,
         sensor_pos=seg_poses.sensor_pos, ego_rot=seg_poses.ego_rot,
         ego_trans=seg_poses.ego_trans, height_sensor_to_ground=hsg,
     )
-    return ground_segment_columns(config, state, seg_in, batch_cols)
 
 
 def finish_step(config: Config, cres: CompleteResult, gcol0, n_cols, counter_old,
@@ -196,29 +205,43 @@ def insert_and_segment(config: Config, state: RingState, batch: FiringBatch,
     batch, clamp the finished columns to the step's capacity, derive each
     column's trigger pose and the ego transform, and segment the ground.
     Updates ``state`` in place; returns (state, gcol0, n_cols)."""
-    F = batch.xyz.shape[0]
-    B = batch_cols
-    dev = state.device
-
     fu_before = state.first_unfinished  # -1 before the first data
     res = insert_firings(config, state, batch)
     state = res.state
-    rearmost = res.rearmost_per_firing  # (F,) frontier after each firing
+    state.first_unfinished, seg_in = frontier_and_poses(
+        fu_before, res.rearmost_per_firing, state.first_unfinished, state.reset_required,
+        batch.pose, ego, batch_cols)
+    state = ground_segment_columns(config, state, seg_in, batch_cols)
+    return state, seg_in.gcol0, seg_in.n_cols
+
+
+def frontier_and_poses(fu_before, rearmost, fu_after, reset_required, pose: torch.Tensor,
+                       ego: EgoCalibration, batch_cols: int):
+    """What ``pipeline_step`` derives from an insertion, touching no ring
+    cell: the step's columns [gcol0, gcol0 + n_cols), clamped to
+    ``batch_cols``, the insertion frontier rolled back to them (surplus
+    columns are deferred to the next step), and each column's trigger pose
+    and ego transform.  ``fu_before``/``fu_after`` are ``first_unfinished``
+    before and after the insertion, ``rearmost`` its ``prev_rearmost`` after
+    each firing, ``pose`` the batch's (F, 3, 4) poses.  Returns
+    (first_unfinished, SegmentInputs)."""
+    F = pose.shape[0]
+    B = batch_cols
+    dev = pose.device
 
     first_valid = torch.where(rearmost >= 0, rearmost, I32_MAX).amin()
     gcol0 = torch.where(fu_before >= 0, fu_before, first_valid).to(torch.int32)
-    fu_after = state.first_unfinished
     n_cols = torch.clamp(fu_after - gcol0, 0, B)
-    has_work = (fu_after >= 0) & (n_cols > 0) & ~state.reset_required
+    has_work = (fu_after >= 0) & (n_cols > 0) & ~reset_required
     n_cols = torch.where(has_work, n_cols, 0).to(torch.int32)
     # defer surplus columns: roll the insertion frontier back to what is segmented
-    state.first_unfinished = torch.where(has_work, gcol0 + n_cols, fu_after).to(torch.int32)
+    first_unfinished = torch.where(has_work, gcol0 + n_cols, fu_after).to(torch.int32)
 
     # per-column trigger pose: the first firing whose rearmost passes the column
     cols = gcol0 + torch.arange(B, dtype=torch.int32, device=dev)
     rm_key = torch.where(rearmost >= 0, rearmost, I32_MIN).contiguous()
     trig = torch.clamp(torch.searchsorted(rm_key, cols, right=True), 0, F - 1)
-    pose_cols = batch.pose[trig]                       # (B, 3, 4)
+    pose_cols = pose[trig]                             # (B, 3, 4)
     sensor_pos = pose_cols[:, :, 3]
 
     # ego_from_odom = ego_from_sensor @ inverse(odom_from_sensor)
@@ -229,9 +252,7 @@ def insert_and_segment(config: Config, state: RingState, batch: FiringBatch,
     ego_rot = torch.stack([_mat_vec(er, rinv[:, :, k]) for k in range(3)], dim=2)
     ego_trans = _mat_vec(er, tinv) + etr
 
-    seg_in = SegmentInputs(
+    return first_unfinished, SegmentInputs(
         gcol0=gcol0, n_cols=n_cols, sensor_pos=sensor_pos, ego_rot=ego_rot,
         ego_trans=ego_trans, height_sensor_to_ground=ego.height_sensor_to_ground,
     )
-    state = ground_segment_columns(config, state, seg_in, B)
-    return state, gcol0, n_cols

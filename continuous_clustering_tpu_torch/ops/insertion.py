@@ -20,13 +20,18 @@ sequential, exactly as in the reference:
 
 Layout: everything that does not depend on the carry (the pose transform,
 distance, azimuth, inclination, the column within the rotation) is computed
-for all F firings at once.  The firing loop carries the frontier scalars as
-0-d tensors and commits each firing's accepted claims into ``state.distance``
-in place (free cell = NaN); it never reads a value back to the host.  Then
-one batched write puts the other fields of each cell's winner, the accepted
-write with the final distance (every accepted overwrite is strictly nearer
-than its predecessor, …cpp:205).  The JAX version's groups of 8 firings per
-scan iteration are a TPU lowering device and change nothing in the result.
+for all F firings at once.  The firing loop (``claim_firings``) carries the
+frontier scalars as 0-d tensors and commits each firing's accepted claims
+into a distance plane in place (free cell = NaN); it never reads a value
+back to the host, and it reads and writes no other ring field.  Then one
+batched write (``apply_claims``) puts the other fields of each cell's
+winner, the accepted write with the final distance (every accepted
+overwrite is strictly nearer than its predecessor, …cpp:205).
+``insert_firings`` runs both on one state; the column-sharded step
+(``parallel/halo.py``) runs the loop on a distance plane gathered from the
+shards and routes each winner to the shard that owns its column.  The JAX
+version's groups of 8 firings per scan iteration are a TPU lowering device
+and change nothing in the result.
 
 Rounding, so that the CPU and the card agree bit for bit and the port
 equals the JAX package's CPU build wherever it can:
@@ -42,7 +47,7 @@ equals the JAX package's CPU build wherever it can:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -123,15 +128,47 @@ def f64_round(fn, *args: torch.Tensor) -> torch.Tensor:
     return fn(*[a.to(torch.float64) for a in args]).to(torch.float32)
 
 
+CARRIED = ("prev_rearmost", "prev_foremost", "first_unfinished", "ring_start", "ring_end",
+           "first_unpublished", "reset_required")
+
+
+class Claims(NamedTuple):
+    """What the firing loop decided for a batch of F firings of R rows: each
+    point's claimed cell, whether its values go there, the values, and the
+    carried scalars after the batch."""
+
+    row: torch.Tensor      # (F * R,) i64 laser row of each point
+    lcol: torch.Tensor     # (F * R,) i64 ring column it claimed (0 if it claimed none)
+    winner: torch.Tensor   # (F * R,) bool: its values are its cell's final ones
+    values: Dict[str, torch.Tensor]   # cell field -> (F * R,) value of each point
+    scalars: Dict[str, torch.Tensor]  # ``CARRIED`` -> the scalar after the batch
+    rearmost_per_firing: torch.Tensor  # (F,) i32: prev_rearmost after each firing
+
+
 def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> InsertResult:
     """Insert a batch of firings into the ring (in place); returns the state
-    and ``prev_rearmost`` after each firing (-1 before the first data)."""
+    and ``prev_rearmost`` after each firing (-1 before the first data).
+    ``claim_firings`` on the state's own ``distance``, then ``apply_claims``."""
+    claims = claim_firings(config, state, state.distance, batch)
+    apply_claims(state, claims)
+    for name, t in claims.scalars.items():
+        setattr(state, name, t)
+    return InsertResult(state=state, rearmost_per_firing=claims.rearmost_per_firing)
+
+
+def claim_firings(config: Config, state: RingState, dist: torch.Tensor,
+                  batch: FiringBatch) -> Claims:
+    """The sequential firing loop and the winner selection.  ``dist`` is the
+    whole ring's (R, rc) distance plane, NaN = free; the loop commits each
+    firing's accepted claims into it in place.  Reads the carried scalars
+    and ``origin_rot`` of ``state`` and nothing else of it; writes no other
+    field."""
     num_cols = config.range_image.num_columns
     rc = config.ring_buffer_max_columns
     half = num_cols // 2
-    R = state.num_rows
+    R = dist.shape[0]
     F = batch.xyz.shape[0]
-    dev = state.device
+    dev = dist.device
     az_width = torch.tensor(2.0 * math.pi / num_cols, dtype=torch.float32, device=dev)
     pi32 = torch.tensor(math.pi, dtype=torch.float32, device=dev)
     inf = float("inf")
@@ -161,11 +198,8 @@ def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> Inse
     inclination = f64_round(torch.asin, p_rel[2] / dist_all)
 
     # ---- the sequential firing loop ------------------------------------------
-    prev_rearmost, prev_foremost = state.prev_rearmost, state.prev_foremost
-    first_unfinished, ring_start = state.first_unfinished, state.ring_start
-    ring_end, first_unpublished = state.ring_end, state.first_unpublished
-    reset_required = state.reset_required
-    dist = state.distance  # updated in place, NaN = free
+    (prev_rearmost, prev_foremost, first_unfinished, ring_start, ring_end, first_unpublished,
+     reset_required) = [getattr(state, n).to(dev) for n in CARRIED]
     lcols, gcols, writes, rots, finished = [], [], [], [], []
     for f in range(F):
         valid = point_ok[f] & ~reset_required
@@ -221,25 +255,17 @@ def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> Inse
         rots.append(prev_rot + rot_off)
         finished.append(torch.where(have_data, prev_rearmost, -1))
 
-    # ---- one batched write of each cell's winner -------------------------------
+    # ---- each cell's winner: the accepted write with the final distance --------
+    row_idx = rows.repeat(F)
     if F:
         lcol = torch.stack(lcols).reshape(-1).to(torch.int64)
         gcol = torch.stack(gcols).to(torch.int32)
         write = torch.stack(writes).reshape(-1)
-        row_idx = rows.repeat(F)
-        final_d = dist[row_idx, lcol]
-        winner = write & (dist_all.reshape(-1) == final_d)
-        # cell -> winning entry (at most one per cell; losers contribute -1)
-        flat = row_idx * rc + lcol
-        owner = torch.full((R * rc,), -1, dtype=torch.int64, device=dev)
-        entry = torch.arange(F * R, device=dev)
-        owner.scatter_reduce_(0, flat, torch.where(winner, entry, -1), "amax")
-        src = owner[flat]
-        has = src >= 0
-        src = src.clamp_min(0)
+        winner = write & (dist_all.reshape(-1) == dist[row_idx, lcol])
         two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=dev)
-        cont_az = fma32(two_pi, (torch.stack(rots) - state.origin_rot).to(torch.float32), inc_az)
-        vals = {
+        cont_az = fma32(two_pi, (torch.stack(rots) - state.origin_rot.to(dev)).to(torch.float32),
+                        inc_az)
+        values = {
             "x": p_odom[0], "y": p_odom[1], "z": p_odom[2],
             "azimuth": azimuth, "inclination": inclination, "cont_az": cont_az,
             "gcol": gcol,
@@ -248,19 +274,45 @@ def insert_firings(config: Config, state: RingState, batch: FiringBatch) -> Inse
             "intensity": batch.intensity,
             "firing_index": batch.firing_index[:, None].expand(F, R),
         }
-        for name, v in vals.items():
-            arr = getattr(state, name)
-            cur = arr[row_idx, lcol]
-            arr[row_idx, lcol] = torch.where(has, v.reshape(-1).to(arr.dtype)[src], cur)
+        values = {name: v.reshape(-1) for name, v in values.items()}
         rearmost_per_firing = torch.stack(finished).to(torch.int32)
     else:
+        lcol = torch.zeros((0,), dtype=torch.int64, device=dev)
+        winner = torch.zeros((0,), dtype=torch.bool, device=dev)
+        values = {}
         rearmost_per_firing = torch.zeros((0,), dtype=torch.int32, device=dev)
+    carried = (prev_rearmost, prev_foremost, first_unfinished, ring_start, ring_end,
+               first_unpublished)
+    scalars = {n: t.to(torch.int32) for n, t in zip(CARRIED, carried)}
+    scalars["reset_required"] = reset_required
+    return Claims(row_idx, lcol, winner, values, scalars, rearmost_per_firing)
 
-    state.prev_rearmost = prev_rearmost.to(torch.int32)
-    state.prev_foremost = prev_foremost.to(torch.int32)
-    state.first_unfinished = first_unfinished.to(torch.int32)
-    state.ring_start = ring_start.to(torch.int32)
-    state.ring_end = ring_end.to(torch.int32)
-    state.first_unpublished = first_unpublished.to(torch.int32)
-    state.reset_required = reset_required
-    return InsertResult(state=state, rearmost_per_firing=rearmost_per_firing)
+
+def apply_claims(state: RingState, claims: Claims, col0: int = 0) -> None:
+    """Write, in place, the values of every winner of ``claims`` whose ring
+    column lies in ``state``'s columns [col0, col0 + ring_cols): the whole
+    ring (``col0`` 0) or the column shard that owns them.  ``distance`` is
+    not written: the firing loop claimed it.
+
+    Every point is routed to local column ``lcol mod ring_cols`` (of the
+    shard that owns ``lcol``); the cell's winner among the points this
+    state owns decides what all points routed there write, so points that
+    meet at one cell write one value, and a point another shard owns writes
+    the cell's own value back."""
+    if not claims.values:
+        return
+    w = state.ring_cols
+    li = claims.lcol % w
+    mine = (claims.lcol - li) == col0
+    flat = claims.row * w + li
+    # cell -> winning entry (at most one per cell; losers contribute -1)
+    owner = torch.full((state.num_rows * w,), -1, dtype=torch.int64, device=state.device)
+    entry = torch.arange(flat.shape[0], device=state.device)
+    owner.scatter_reduce_(0, flat, torch.where(claims.winner & mine, entry, -1), "amax")
+    src = owner[flat]
+    has = src >= 0
+    src = src.clamp_min(0)
+    for name, v in claims.values.items():
+        arr = getattr(state, name)
+        cur = arr[claims.row, li]
+        arr[claims.row, li] = torch.where(has, v.to(arr.dtype)[src], cur)

@@ -28,9 +28,11 @@ variant (script name)    computes
 =======================  ================================================
 
 The wrapper rule of the port: a CUDA tensor launches the kernel
-(``csrc/sweep_probe.cu``, one block, one thread per output cell with the dc
-loop inside) or raises; a CPU tensor takes the plain twin.  ``LAUNCHES``
-counts kernel launches only.
+(``csrc/sweep_probe.cu``: one block on one SM, each thread owning the same
+<= 5 cells in every step, the labels in registers and in shared memory
+twice, the mask bits unpacked into shared memory before the first step) or
+raises; a CPU tensor takes the plain twin.  ``LAUNCHES`` counts kernel
+launches only.
 """
 
 from __future__ import annotations

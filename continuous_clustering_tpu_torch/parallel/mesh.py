@@ -22,7 +22,7 @@ dp when stacked).  ``shard_pytree`` makes one from a ``RingState``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,3 +140,17 @@ def gather_state(sharded: ShardedState, device=None) -> RingState:
             rows.append(torch.cat(parts, dim=s.index("sp")) if "sp" in s else parts[0])
         out[n] = torch.cat(rows) if "dp" in s else rows[0]
     return RingState(**out)
+
+
+def stream_state(state: RingState, s: int) -> RingState:
+    """Stream ``s`` of a stacked state: views of its slices."""
+    return RingState(**{n: getattr(state, n)[s] for n in FIELDS})
+
+
+def _pick(stacked: NamedTuple, s: int):
+    """Stream ``s`` of a tuple of stacked tensors (a batch, poses, a calibration)."""
+    return type(stacked)(*[t[s] for t in stacked])
+
+
+def _to(tree: NamedTuple, dev: torch.device):
+    return type(tree)(*[t.to(dev) for t in tree])

@@ -1,11 +1,11 @@
-"""Several sensor streams in one step on one device (port of
+"""Several sensor streams in one step (port of
 ``continuous_clustering_tpu/parallel/multi_sensor.py``).
 
 The reference's multi-sensor deployment runs one clustering node per sensor
 (three on the vehicle of ``launch/demo_touareg.launch:20-31``).  The JAX
 package runs ``pipeline_step`` under ``jax.vmap`` over a leading sensor axis,
-so each Pallas kernel becomes one launch for all sensors, and shards that
-axis over a device mesh.
+so each Pallas kernel becomes one launch for all sensors, and lets GSPMD
+split that axis over a mesh's ``dp`` and each ring's columns over ``sp``.
 
 The state carries every ``RingState`` field with a leading sensor axis
 (``stacked_init``).  A step runs, per stream, the parts
@@ -17,20 +17,23 @@ rest of association still run stream by stream, so their launches grow with
 the number of streams.  The sensor axis is split over the ``dp`` rows of
 a ``Mesh`` (``parallel/mesh.py``), each device stepping the streams of the
 rows it holds; a state on one device is the one shard of a one-device
-mesh.  The JAX package's GSPMD split of the ring columns over ``sp`` is not
-ported (the port's column-sharded path is ``parallel/halo.py``).
+mesh.  On a mesh with sp > 1 each stream's ring columns are split over sp
+too, and the step is ``parallel/halo.py::insertion_sharded_step``: the
+firing loop on a gathered ``distance`` plane, each winner written to the
+shard that owns its column, then the halo window's segmentation and
+association, K1 and K2 again once per device for all its streams.
 
 The ops update a state's ring and table tensors in place, so those writes
 land in the stacked tensors; they re-bind the scalars and the K-slot table
 (``ops/state.py``), and every field a stream re-bound is copied back into
 its slice after the step.  Per stream the step computes exactly what
-``pipeline_step`` computes on that stream alone.
+``pipeline_step`` computes on that stream alone, on any mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional
+from typing import List, Optional
 
 import torch
 
@@ -39,7 +42,8 @@ from ..models.step import EgoCalibration, StepInfo, finish_step, insert_and_segm
 from ..ops.association import complete_association, window_arrays, window_kernels
 from ..ops.insertion import FiringBatch
 from ..ops.state import RingState, init_state
-from .mesh import Mesh, ShardedState
+from .halo import insertion_sharded_step
+from .mesh import Mesh, ShardedState, _pick, _to, stream_state
 
 FIELDS = tuple(f.name for f in dataclasses.fields(RingState))
 
@@ -49,15 +53,6 @@ def stacked_init(config: Config, num_rows: int, n_sensors: int, device=None) -> 
     ``device`` (the card unless the caller names another)."""
     one = init_state(config, num_rows, torch.device("cuda" if device is None else device))
     return RingState(**{n: torch.stack([getattr(one, n)] * n_sensors) for n in FIELDS})
-
-
-def stream_state(state: RingState, s: int) -> RingState:
-    """Stream ``s`` of a stacked state: views of its slices."""
-    return RingState(**{n: getattr(state, n)[s] for n in FIELDS})
-
-
-def _pick(stacked: NamedTuple, s: int):
-    return type(stacked)(*[t[s] for t in stacked])
 
 
 def _step_streams(config: Config, views: List[RingState], batches: List[FiringBatch],
@@ -85,10 +80,6 @@ def _step_streams(config: Config, views: List[RingState], batches: List[FiringBa
     return infos
 
 
-def _to(tree: NamedTuple, dev: torch.device):
-    return type(tree)(*[t.to(dev) for t in tree])
-
-
 def make_sharded_step(config: Config, batch_cols: int, device=None, slab_cols: int = 0,
                       slab_head: int = 0, mesh: Optional[Mesh] = None):
     """The multi-sensor step: ``run(state, batch, calib) -> (state,
@@ -99,18 +90,16 @@ def make_sharded_step(config: Config, batch_cols: int, device=None, slab_cols: i
     ``pipeline_step`` takes them.
 
     With ``mesh`` (``parallel/mesh.py``) the state is a ``ShardedState``
-    (``shard_pytree(mesh, state, stacked=True)``) whose dp rows hold the
-    streams, and each device steps the streams of the rows it holds, K1 and
-    K2 once for all of them; the ``StepInfo`` lives on the mesh's first
-    device.  The mesh's ``sp`` must be 1: the port shards ring columns only
-    on the halo path (``make_halo_sharded_step(..., stacked=True)``).
-    Without ``mesh`` the state is a stacked ``RingState`` on ``device`` (the
-    card unless the caller names another), stepped as the one shard of a
-    one-device mesh."""
-    if mesh is not None and mesh.shape["sp"] != 1:
-        raise ValueError(
-            f"make_sharded_step: mesh {mesh.shape} splits ring columns over sp; the port's "
-            "column-sharded path is parallel.halo.make_halo_sharded_step(..., stacked=True)")
+    (``shard_pytree(mesh, stacked_init(...), stacked=True)``) whose dp rows
+    hold the streams, and each device steps the streams of the rows it
+    holds, K1 and K2 once for all of them; the ``StepInfo`` lives on the
+    mesh's first device.  Where the mesh's ``sp`` is above 1 each stream's
+    ring columns are split over it (the ring's columns must split evenly),
+    and after the step every shard still holds rc / sp columns
+    (``parallel/halo.py::insertion_sharded_step``).  Without ``mesh`` the
+    state is a stacked ``RingState`` on ``device`` (the card unless the
+    caller names another), stepped as the one shard of a one-device
+    mesh."""
     dev = torch.device("cuda" if device is None else device)
 
     def run(state, batch: FiringBatch, calib: EgoCalibration):
@@ -118,6 +107,9 @@ def make_sharded_step(config: Config, batch_cols: int, device=None, slab_cols: i
             if not isinstance(state, ShardedState) or state.mesh != mesh or not state.stacked:
                 raise ValueError("with a mesh the state is shard_pytree(mesh, "
                                  "stacked_init(...), stacked=True)")
+            if mesh.shape["sp"] > 1:
+                return state, insertion_sharded_step(config, state, batch, calib, batch_cols,
+                                                     slab_cols, slab_head)
             return state, _step_mesh(config, state, batch, calib, batch_cols, slab_cols,
                                      slab_head)
         if state.x.device.type != dev.type:

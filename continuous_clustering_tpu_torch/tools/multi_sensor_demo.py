@@ -6,9 +6,10 @@ Runs N independent sensor streams, the reference's three-node deployment
 (roof VLS-128 + two tilted OS-32, launch/demo_touareg.launch:20-31), either
 as one ``ContinuousClustering`` facade per sensor (host-parallel) or through
 the multi-sensor step (``--sharded``: ``parallel/multi_sensor.py`` on a
-``parallel/mesh.py`` mesh whose dp rows split the sensors, K1 and K2
-launched once per step and device for all its sensors), on ``--device``
-(every visible card unless ``--device cpu`` or a numbered card).
+``parallel/mesh.py`` mesh whose dp rows split the sensors and whose sp
+columns split each ring over the cards left over, K1 and K2 launched once
+per step and device for all its sensors), on ``--device`` (every visible
+card unless ``--device cpu`` or a numbered card).
 
 Usage:
     python -m continuous_clustering_tpu_torch.tools.multi_sensor_demo \\
@@ -153,15 +154,19 @@ def _run_sharded(cfg, rows, cols, revolutions, frames, dev) -> dict:
 
 
 def _demo_mesh(n_sensors: int, dev: torch.device):
-    """The (dp, 1) mesh of the sharded demo: the sensors split evenly over
-    as many devices as divide their number; ``cuda`` means every visible
-    card, a numbered card or the CPU holds all sensors."""
+    """The mesh of the sharded demo, as the JAX demo's ``make_mesh(dp=min(S,
+    n))`` makes it: the sensors split evenly over dp, as many rows as divide
+    their number and fit the devices, and the devices left over after dp
+    split each ring's columns over sp = n // dp.  ``cuda`` means every
+    visible card; a numbered card or the CPU holds all sensors (dp 1, sp
+    1)."""
     from ..parallel.mesh import make_mesh
 
     devices = ([dev] if dev.type != "cuda" or dev.index is not None
                else [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
     dp = max(d for d in range(1, len(devices) + 1) if n_sensors % d == 0)
-    return make_mesh(n_devices=dp, dp=dp, devices=devices)
+    sp = len(devices) // dp
+    return make_mesh(n_devices=dp * sp, dp=dp, devices=devices)
 
 
 if __name__ == "__main__":

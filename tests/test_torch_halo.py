@@ -2,7 +2,10 @@
 (``parallel/mesh.py``) against the JAX package's and against the port's own
 unsharded step, on the CPU.
 
-The port's counterparts of the three ``tests/test_halo.py`` cases.  Blocks
+The port's counterparts of the three ``tests/test_halo.py`` cases, and the
+multi-sensor step on meshes of ``tests/test_parallel.py``'s shapes, dp 2 x
+sp 1 and dp 2 x sp 4 (device insertion into column shards), against the
+JAX ``make_sharded_step`` on ``make_mesh(8)``.  Blocks
 are captured once with the port's host insertion (the JAX test captures
 them with the JAX ``HostInsertion``, which needs the JAX package's native
 library built) at 110 columns, a ring of 4 revolutions and firing batch
@@ -234,14 +237,17 @@ def test_mesh_rules_and_state_round_trip():
 
 
 def test_multi_sensor_step_on_a_dp_mesh_matches_jax():
-    """``make_sharded_step(mesh=...)`` with the streams split over dp = 2
-    against the JAX ``make_sharded_step`` on ``make_mesh(8)`` (dp 2, sp 4),
-    by the rule of tests/test_torch_multi_sensor.py (meta without
-    ``cc_rounds``, state by the device-insertion rule) and exactly against
-    the port's one-device multi-sensor step; sp > 1 raises."""
+    """``make_sharded_step(mesh=...)`` with the streams split over dp = 2,
+    on a mesh with sp 1 and on one whose ring columns are split over sp = 4
+    (device insertion into a column-sharded ring), against the JAX
+    ``make_sharded_step`` on ``make_mesh(8)`` (dp 2, sp 4), by the rule of
+    tests/test_torch_multi_sensor.py (meta without ``cc_rounds``, state by
+    the device-insertion rule), and exactly against the port's one-device
+    multi-sensor step: every step's meta, slab and tail, and at the end
+    every field.  11 steps of 55 firings wrap the ring of 440 columns."""
     jcfg = small_cfg()
     cfg = config_from_dataclass(jcfg)
-    S, n_steps, JB = 4, 4, F + 32
+    S, n_steps, JB = 4, 11, F + 32
     batches = [make_batches(seed=7 + s, n_steps=n_steps) for s in range(S)]
     jrun = jax_sharded_step(jcfg, jax_make_mesh(8), batch_cols=JB)
     jstate = jax_stacked_init(jcfg, NUM_ROWS, S)
@@ -249,8 +255,10 @@ def test_multi_sensor_step_on_a_dp_mesh_matches_jax():
 
     mesh = make_mesh(2, devices=["cpu"] * 8)
     assert mesh.shape == {"dp": 2, "sp": 1}
-    run = make_sharded_step(cfg, JB, mesh=mesh)
-    state = shard_pytree(mesh, stacked_init(cfg, NUM_ROWS, S, "cpu"), stacked=True)
+    meshes = [mesh, cpu_mesh(2, 4)]
+    runs = [make_sharded_step(cfg, JB, mesh=m) for m in meshes]
+    states = [shard_pytree(m, stacked_init(cfg, NUM_ROWS, S, "cpu"), stacked=True)
+              for m in meshes]
     one_run = make_sharded_step(cfg, JB, device="cpu")
     one = stacked_init(cfg, NUM_ROWS, S, "cpu")
     tcal = stack([torch_calib()] * S)
@@ -259,19 +267,24 @@ def test_multi_sensor_step_on_a_dp_mesh_matches_jax():
         jbatch = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *[b[k] for b in batches])
         jstate, jinfo = jrun(jstate, jbatch, jcal)
         tbatch = stack([to_torch(b[k]) for b in batches])
-        state, tinfo = run(state, tbatch, tcal)
         one, oinfo = one_run(one, tbatch, tcal)
-        for part in ("meta", "slab", "slab_ext"):
-            assert torch.equal(getattr(tinfo, part), getattr(oinfo, part)), f"step {k}: {part}"
-        np.testing.assert_array_equal(tinfo.meta.numpy()[:, lanes],
-                                      np.asarray(jinfo.meta)[:, lanes], err_msg=f"step {k}")
-    ts, js = state_to_numpy(gather_state(state)), jax_state_numpy(jstate)
-    assert_exact(state_to_numpy(one), ts, "dp mesh vs one device")
-    for s in range(S):
-        compare_states({n: a[s] for n, a in js.items()}, {n: a[s] for n, a in ts.items()},
-                       f"sensor {s}")
-    with pytest.raises(ValueError, match="make_halo_sharded_step"):
-        make_sharded_step(cfg, JB, mesh=cpu_mesh(2, 4))
+        for m, (run, state) in enumerate(zip(runs, states)):
+            state, tinfo = run(state, tbatch, tcal)
+            where = f"step {k}, mesh {meshes[m].shape}"
+            for part in ("meta", "slab", "slab_ext"):
+                assert torch.equal(getattr(tinfo, part), getattr(oinfo, part)), f"{where}: {part}"
+            np.testing.assert_array_equal(tinfo.meta.numpy()[:, lanes],
+                                          np.asarray(jinfo.meta)[:, lanes], err_msg=where)
+    assert int(tbatch.valid.sum()) > 0 and int(one.ring_start.min()) > 0
+    assert int(oinfo.gcol0.min()) + JB > cfg.ring_buffer_max_columns, "no ring wrap"
+    js = jax_state_numpy(jstate)
+    for m, state in enumerate(states):
+        ts = state_to_numpy(gather_state(state))
+        assert_exact(state_to_numpy(one), ts, f"mesh {meshes[m].shape} vs one device")
+        for s in range(S):
+            compare_states({n: a[s] for n, a in js.items()}, {n: a[s] for n, a in ts.items()},
+                           f"mesh {meshes[m].shape}, sensor {s}")
+    assert states[1].shards[1][3].x.shape == (2, NUM_ROWS, cfg.ring_buffer_max_columns // 4)
 
 
 def test_halo_clear_keeps_fresher_cells_as_the_unsharded_clear():

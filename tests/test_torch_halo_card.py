@@ -1,4 +1,4 @@
-"""The column-sharded halo step on the card.
+"""The column-sharded steps on the card.
 
 Marked ``cuda``: skips without a CUDA device.  Imports nothing of JAX or of
 the JAX package:
@@ -8,8 +8,11 @@ the JAX package:
 A 32 x 220 stream (ring of 4 revolutions, firing batch 64, 5 revolutions
 so the ring wraps) captured with the host insertion on the card runs
 through the unsharded ``pipeline_step_block`` and through the halo step
-with 4 column shards on the card, slab on.  Tolerance: exact, every state
-field and every step's meta, slab and tail; K1 and K2 launch once a step.
+with 4 column shards on the card, slab on.  Two such streams as firing
+batches run through the device-insertion multi-sensor step on a dp 2 x
+sp 4 mesh on the card and through the unsharded one.  Tolerance: exact,
+every state field and every step's meta, slab and tail; K1 and K2 launch
+once a step.
 """
 
 from __future__ import annotations
@@ -70,9 +73,59 @@ def test_halo_step_on_the_card_equals_the_unsharded_step():
             assert torch.equal(a, b), f"step {k}"
     whole = gather_state(sh)
     assert whole.x.device == dev and int(ref.ring_start) > 0
-    for f in dataclasses.fields(ref):
-        a, b = getattr(whole, f.name), getattr(ref, f.name)
-        if a.dtype.is_floating_point:
-            assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert_states_equal(whole, ref)
+
+
+def assert_states_equal(a, b) -> None:
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x.dtype.is_floating_point:
+            assert torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(), y.nan_to_num())
         else:
-            assert torch.equal(a, b), f.name
+            assert torch.equal(x, y), f.name
+
+
+def test_sharded_insertion_on_the_card_equals_the_unsharded_step():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from continuous_clustering_tpu_torch.config import kitti_config
+    from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firings,
+                                                                      make_scene, raycast_frame)
+    from continuous_clustering_tpu_torch.models.step import EgoCalibration
+    from continuous_clustering_tpu_torch.models.throughput import stack_batches
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.ops.insertion import make_firing_batch
+    from continuous_clustering_tpu_torch.parallel.mesh import gather_state, make_mesh, shard_pytree
+    from continuous_clustering_tpu_torch.parallel.multi_sensor import (make_sharded_step,
+                                                                       stacked_init)
+
+    dev = torch.device("cuda", 0)
+    cfg = kitti_config()
+    cfg = cfg.replace(range_image=dataclasses.replace(cfg.range_image, num_columns=220,
+                                                      ring_buffer_revolutions=4))
+    F, B, eye = 64, 96, np.eye(4)
+    streams = []
+    for seed in (2, 3):
+        scene = make_scene(num_boxes=6, seed=seed, spread=18.0)
+        streams.append(sum((frame_to_firings(raycast_frame(scene, num_rows=32, num_columns=220,
+                                                           seed=seed + rev)[0], frame_index=rev)
+                            for rev in range(5)), []))
+    batches = [stack_batches([make_firing_batch(f[k:k + F], [eye] * len(f[k:k + F]), F, 32, dev)
+                              for f in streams]) for k in range(0, len(streams[0]), F)]
+    calib = EgoCalibration(torch.stack([torch.eye(4, device=dev)[:3]] * 2),
+                           torch.full((2,), -1.7, device=dev))
+    mesh = make_mesh(devices=[dev] * 8)
+    run = make_sharded_step(cfg, B, slab_cols=128, slab_head=64, mesh=mesh)
+    one_run = make_sharded_step(cfg, B, slab_cols=128, slab_head=64, device=dev)
+    sh = shard_pytree(mesh, stacked_init(cfg, 32, 2, dev), stacked=True)
+    one = stacked_init(cfg, 32, 2, dev)
+    for k, batch in enumerate(batches):
+        one, oinfo = one_run(one, batch, calib)
+        cc_cuda.reset_launch_counts()
+        sh, info = run(sh, batch, calib)
+        assert cc_cuda.LAUNCHES == {"edge_bits": 1, "window_cc": 1}, k
+        for a, b in zip(info, oinfo):
+            assert torch.equal(a, b), f"step {k}"
+    assert int(one.ring_start.min()) > 0 and int(oinfo.gcol0.min()) + B > 880
+    assert all(part.x.shape[-1] == 220 for row in sh.shards for part in row)
+    assert_states_equal(gather_state(sh), one)

@@ -14,8 +14,9 @@ one at R = 128, B = 512, and a snake that runs into the round cap.  The
 stacked launches (several windows in one launch, as the multi-sensor step
 makes them) must equal each window's own launch and twin, the round counts
 of windows that converge after different numbers of rounds included.  The
-probe variants run on their own inputs.  Tolerance: bits, labels, the
-converged flag, the round count and the probe outputs exact.
+probe variants run on their own inputs at upper 1, 7 and 21, and those that
+read no bits at upper 300, past the padded width.  Tolerance: bits,
+labels, the converged flag, the round count and the probe outputs exact.
 """
 
 from __future__ import annotations
@@ -204,3 +205,18 @@ def test_sweep_probe_kernels_match_plain(upper):
     results = run("cuda", seed=upper, uppers=(upper,))
     assert results == [(name, "OK", 0) for name in sweep_probe.VARIANTS]
     assert sweep_probe.LAUNCHES["sweep_probe"] == before + len(sweep_probe.VARIANTS)
+
+
+@pytest.mark.parametrize("name", ["V2_dynamic_roll", "V5_cmp_astype_prefix", "V6_bitpack"])
+def test_sweep_probe_shift_wraps_past_the_padded_width(name):
+    """At upper = 300 the roll's shift passes the padded width PW = 256: the
+    kernel carries it modulo PW by one compare (the variants that read no
+    bits; the others stop at H + 1)."""
+    _card()
+    from continuous_clustering_tpu_torch.ops.sweep_probe import sweep_probe, sweep_probe_reference
+    from continuous_clustering_tpu_torch.tools.sweep_probe import probe_inputs
+
+    bits, L = (torch.from_numpy(a).cuda() for a in probe_inputs(3))
+    upper = torch.tensor(300, dtype=torch.int32, device="cuda")
+    got = sweep_probe(name, bits, upper, L)
+    assert torch.equal(got, sweep_probe_reference(name, bits, upper, L))
