@@ -405,8 +405,10 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # the device-side copies of the program's spans are no device work
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     if not kernels or busy <= 0:
         return None

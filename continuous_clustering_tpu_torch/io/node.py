@@ -24,6 +24,7 @@ from ..config import Config
 from ..models.continuous_clustering import ContinuousClustering
 from ..sensors.sensor_input import GenericPointsInput, SensorInput
 from ..utils.platform import resolve_device
+from ..utils.stats import TRACE
 from .point_cloud import ProcessingStage
 from .transform_synchronizer import TransformSynchronizer
 
@@ -117,7 +118,8 @@ class ClusteringNode:
         if self.publish_firing:
             self.publish_firing(firing)
         self.clustering._sensor_depth = self.sensor_input.pending_packets()
-        self.tf_sync.add_message(stamp, firing)
+        with TRACE.span("node.tf_sync"):
+            self.tf_sync.add_message(stamp, firing)
 
     def _on_firing_with_tf(self, firing, pose) -> None:
         if self.publish_clock or self.publish_tf:

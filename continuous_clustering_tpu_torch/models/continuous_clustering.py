@@ -22,6 +22,13 @@ Two insertion paths, chosen by the ``insertion`` argument:
 Either way the host reads the packed meta vector with ONE device-to-host
 copy per step (one step late in async mode, ``is_single_threaded=False``),
 and cluster emission reads the publish slab that rode the step's outputs.
+
+Each layer records a span into the program's registry (``utils/stats.TRACE``):
+``facade.batch`` around one firing batch, inside it ``facade.host_insertion``,
+``facade.stage``, ``facade.upload``, the step's own spans (``models/step.py``),
+``facade.meta_wait``, ``facade.emit`` (its ``facade.callbacks``) and
+``facade.rebase``; every device-to-host read goes through ``to_host`` and
+every upload through ``to_device``, which count them.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from ..ops.ingest import (MERGED_MIN_ROWS, N_BLOCK_FIELDS, N_BLOCK_SCALARS, N_ME
 from ..ops.insertion import FiringBatch, make_firing_batch
 from ..ops.readout import join_tables, packed_readout, unpack_slab
 from ..ops.state import RingState, init_state, rebase_azimuth
-from ..utils.stats import StageTimer, WorkloadRecorder
+from ..utils.stats import TRACE, StageTimer, WorkloadRecorder, to_device, to_host
 from .host_insertion import HostInsertion
 from .step import (META_CC_FAILED, META_CC_ROUNDS, META_COUNTER_OLD, META_FU_NEW,
                    META_FU_OLD, META_GCOL0, META_NCOLS, META_NUM_NEW, META_OVERFLOW,
@@ -170,13 +177,15 @@ class ContinuousClustering:
         self._fifo.append(firing)
         self._fifo_poses.append(np.asarray(odom_from_sensor, dtype=np.float64))
         if len(self._fifo) >= self._batch_F:
-            self._process_batch()
+            with TRACE.span("facade.batch"):
+                self._process_batch()
 
     def flush(self) -> None:
         """Process buffered firings, drain deferred results, then run the
         finalization kicks (empty steps release clusters held one round)."""
         if self._fifo:
-            self._process_batch()
+            with TRACE.span("facade.batch"):
+                self._process_batch()
         self._drain_pending()
         if self._host_ins is None:
             # stream end: drain surplus finished columns beyond step capacity
@@ -190,7 +199,8 @@ class ContinuousClustering:
                 fu_before = self._h_first_unpublished
                 if self._host_ins is not None:
                     fu = self._h_first_unfinished
-                    staged, _ = self._stage_block(fu, fu, False)
+                    with TRACE.span("facade.stage"):
+                        staged, _ = self._stage_block(fu, fu, False)
                     self._consume_info(self._run_block(staged))
                 else:
                     self._run_step(self._empty_batch(), self._make_calib())
@@ -241,14 +251,17 @@ class ContinuousClustering:
 
     def _make_batch(self, firings, poses) -> FiringBatch:
         """The firing batch on the device, padded to the batch size."""
-        return make_firing_batch(firings, poses, self._batch_F, self._num_rows, self._device)
+        with TRACE.span("facade.upload"):
+            return make_firing_batch(firings, poses, self._batch_F, self._num_rows,
+                                     self._device)
 
     def _empty_batch(self) -> FiringBatch:
         """A batch of no firings; it carries the last firing's pose, so that
         the columns it drains get their real trigger pose."""
-        empty = self._make_batch([], [])
-        pose = torch.from_numpy(self._last_pose[:3, :].astype(np.float32)).to(self._device)
-        return empty._replace(pose=pose.expand_as(empty.pose).contiguous())
+        with TRACE.span("facade.upload"):
+            empty = make_firing_batch([], [], self._batch_F, self._num_rows, self._device)
+            pose = to_device(self._last_pose[:3, :], self._device, torch.float32)
+            return empty._replace(pose=pose.expand_as(empty.pose).contiguous())
 
     def _make_calib(self) -> EgoCalibration:
         if self._ego_from_sensor is None:
@@ -256,8 +269,7 @@ class ContinuousClustering:
         if self._calib is None:
             ego = self._ego_from_sensor
             self._calib = EgoCalibration(
-                ego_from_sensor=torch.tensor(ego[:3, :], dtype=torch.float32,
-                                             device=self._device),
+                ego_from_sensor=to_device(ego[:3, :], self._device, torch.float32),
                 height_sensor_to_ground=self._hsg())
         return self._calib
 
@@ -267,6 +279,7 @@ class ContinuousClustering:
         the device runs step k + 1.  Returns n_cols of the step whose meta
         was consumed (0 if it was deferred)."""
         self.n_steps += 1
+        TRACE.step(self.n_steps)
         self._state, info = pipeline_step(
             self._config, self._state, batch, calib, self._batch_B,
             slab_cols=self._slab_W, slab_head=self._slab_W1)
@@ -280,10 +293,10 @@ class ContinuousClustering:
     def _hsg(self) -> torch.Tensor:
         """Device scalar: sensor height over ground."""
         if self._hsg_dev is None:
-            self._hsg_dev = torch.tensor(
+            self._hsg_dev = to_device(
                 np.float32(-self._ego_from_sensor[2, 3]
                            + self._config.ground_segmentation.height_ref_to_ground),
-                device=self._device)
+                self._device)
         return self._hsg_dev
 
     def _upload_block(self, staged):
@@ -292,12 +305,12 @@ class ContinuousClustering:
         rows."""
         B = self._batch_B
         buf, segp = staged
-        dev_buf = torch.from_numpy(buf).to(self._device, copy=True)
+        dev_buf = to_device(buf, self._device)
         if segp is None:
             fields, scalars, segp = split_merged(dev_buf)
         else:
             fields, scalars = split_fields(dev_buf)
-            segp = torch.from_numpy(segp).to(self._device, copy=True)
+            segp = to_device(segp, self._device)
         seg = SegPoses(sensor_pos=segp[:, 0:3], ego_rot=segp[:, 3:12].reshape(B, 3, 3),
                        ego_trans=segp[:, 12:15])
         return unpack_block(fields, scalars), seg
@@ -305,7 +318,9 @@ class ContinuousClustering:
     def _run_block(self, staged) -> StepInfo:
         """Upload one block's staging buffers and run the step on it."""
         self.n_steps += 1
-        block, seg = self._upload_block(staged)
+        TRACE.step(self.n_steps)
+        with TRACE.span("facade.upload"):
+            block, seg = self._upload_block(staged)
         self._state, info = pipeline_step_block(
             self._config, self._state, block, seg, self._hsg(), self._batch_B,
             slab_cols=self._slab_W, slab_head=self._slab_W1)
@@ -326,9 +341,10 @@ class ContinuousClustering:
             device=len(self._pending_infos),
             publish=max(0, self._h_first_unfinished - self._h_first_unpublished),
         )
-        # no synchronisation is added for the timers: in async mode
-        # "device_step" times the step's enqueue (and the meta read of the
-        # step before it), not the device's work on this step
+        # "device_step" times the enqueue of the batch's steps (and, in
+        # async mode, the meta read and emission of the step before each),
+        # not the device's work: no synchronisation is added for it.  The
+        # registry's spans inside it (facade.*, step.*) split it.
         if self._host_ins is not None:
             with self.stats.track("device_step"):
                 self._process_batch_host(firings, poses)
@@ -347,12 +363,14 @@ class ContinuousClustering:
 
     def _process_batch_host(self, firings, poses) -> None:
         ins = self._host_ins
-        first, end, reset = ins.add_firings(firings, poses)
+        with TRACE.span("facade.host_insertion"):
+            first, end, reset = ins.add_firings(firings, poses)
         if reset:
             self._reset_required = True
             return
         while True:
-            staged, n = self._stage_block(first, end, reset)
+            with TRACE.span("facade.stage"):
+                staged, n = self._stage_block(first, end, reset)
             info = self._run_block(staged)
             if self._config.general.is_single_threaded:
                 self._consume_info(info)
@@ -363,7 +381,8 @@ class ContinuousClustering:
             first += n
             if first >= end or n == 0:
                 break
-        ins.clear_before(self._h_first_unpublished - self._config.range_image.num_columns)
+        with TRACE.span("facade.host_insertion"):
+            ins.clear_before(self._h_first_unpublished - self._config.range_image.num_columns)
         self._maybe_rebase()
 
     def _drain_pending(self) -> None:
@@ -373,7 +392,9 @@ class ContinuousClustering:
     def _consume_info(self, info: StepInfo) -> int:
         """Read the step's meta (its one device-to-host copy), raise on its
         error flags, run the callbacks; returns the step's n_cols."""
-        m = info.meta.cpu().numpy()
+        with TRACE.span("facade.meta_wait"):
+            m = to_host(info.meta).numpy()
+        TRACE.resolve()
         if m[META_RESET]:
             self._reset_required = True
             return 0
@@ -392,6 +413,7 @@ class ContinuousClustering:
         n_cols = int(m[META_NCOLS])
         self._last_ncols = n_cols
         self.last_cc_rounds = int(m[META_CC_ROUNDS])
+        TRACE.count("step.cc_rounds", self.last_cc_rounds)
         gcol0 = int(m[META_GCOL0])
         fu_old, fu_new = int(m[META_FU_OLD]), int(m[META_FU_NEW])
         if n_cols == 0 and fu_new == fu_old:
@@ -414,8 +436,9 @@ class ContinuousClustering:
         if n_cols > 0 and self.finished_column_callback:
             self.finished_column_callback(gcol0, gcol0 + n_cols - 1, True)
         if num_new > 0 and self.finished_cluster_callback:
-            self._emit_clusters(fu_old, max(gcol0 + n_cols, fu_new),
-                                counter_old, counter_old + num_new)
+            with TRACE.span("facade.emit"):
+                self._emit_clusters(fu_old, max(gcol0 + n_cols, fu_new),
+                                    counter_old, counter_old + num_new)
         if fu_new > fu_old and self.finished_column_callback:
             self.finished_column_callback(fu_old, fu_new - 1, False)
         return n_cols
@@ -429,22 +452,24 @@ class ContinuousClustering:
             self._config.clustering.use_last_point_for_cluster_stamp)
         if full is not None:
             self._cloud_cache = (from_gcol, to_gcol, full)
-        for group, stamp in groups:
-            self.finished_cluster_callback(group, stamp)
+        with TRACE.span("facade.callbacks"):
+            for group, stamp in groups:
+                self.finished_cluster_callback(group, stamp)
 
     def _maybe_rebase(self) -> None:
         rot = self._h_first_unpublished // self._config.range_image.num_columns
         if rot - self._h_origin_rot > self._rebase_after:
-            # cached and in-flight slabs hold azimuths relative to the old
-            # origin: consume everything first, then drop the caches
-            self._drain_pending()
-            self._slab = None
-            self._slab_np = None
-            self._cloud_cache = None
-            rot = self._h_first_unpublished // self._config.range_image.num_columns
-            delta = rot - self._h_origin_rot
-            self._state, _ = rebase_azimuth(self._state, delta)
-            self._h_origin_rot += delta
+            with TRACE.span("facade.rebase"):
+                # cached and in-flight slabs hold azimuths relative to the
+                # old origin: consume everything first, then drop the caches
+                self._drain_pending()
+                self._slab = None
+                self._slab_np = None
+                self._cloud_cache = None
+                rot = self._h_first_unpublished // self._config.range_image.num_columns
+                delta = rot - self._h_origin_rot
+                self._state, _ = rebase_azimuth(self._state, delta)
+                self._h_origin_rot += delta
 
     # ---------------------------------------------------------------- access
     def _fetch_slab(self, from_gcol: int, n: int):
@@ -458,15 +483,15 @@ class ContinuousClustering:
                 need = from_gcol - lo + n
                 if self._slab_np is None or self._slab_np.shape[2] < need:
                     both = head if need <= head.shape[2] else torch.cat([head, tail], dim=2)
-                    self._slab_np = both.cpu().numpy()
+                    self._slab_np = to_host(both).numpy()
                 return self._slab_np, from_gcol - lo, tabs
         rc = self._state.ring_cols
         bucket = min(max(8, 1 << max(0, n - 1).bit_length()), rc)
         if bucket < n:
             raise ValueError(f"column range of {n} exceeds the ring's {rc} columns")
-        slab = packed_readout(self._state, from_gcol % rc, bucket,
-                              self._config.clustering.record_neighbor_stats).cpu().numpy()
-        return slab, 0, join_tables(self._state).cpu().numpy()
+        slab = to_host(packed_readout(self._state, from_gcol % rc, bucket,
+                                      self._config.clustering.record_neighbor_stats)).numpy()
+        return slab, 0, to_host(join_tables(self._state)).numpy()
 
     @property
     def state(self) -> RingState:

@@ -12,6 +12,11 @@ Both end with the publish slab, join tables and the packed meta vector: the
 step's scalars ride ONE i32 vector (``StepInfo.meta``) so that the host
 reads them with a single device-to-host copy.
 
+Each part records a span into the program's registry (``utils/stats.TRACE``):
+``step.insertion``, ``step.frontier``, ``step.ingest``,
+``step.ground_segmentation``, ``step.association`` (with
+``step.association.cc`` around the kernels) and ``step.finish``.
+
 ``pipeline_step`` is ``insert_and_segment``, ``associate_and_complete`` and
 ``finish_step`` in order, ``pipeline_step_block`` the same with
 ``ingest_and_segment`` first; the multi-sensor step
@@ -37,6 +42,7 @@ from ..ops.ingest import ColumnBlock, ingest_columns
 from ..ops.insertion import I32_MIN, FiringBatch, fma32, insert_firings
 from ..ops.readout import join_tables, packed_readout, slab_rows
 from ..ops.state import I32_MAX, RingState
+from ..utils.stats import TRACE
 
 # meta vector lanes
 (META_GCOL0, META_NCOLS, META_FU_OLD, META_FU_NEW, META_NUM_NEW,
@@ -138,7 +144,8 @@ def pipeline_step_block(config: Config, state: RingState, block: ColumnBlock,
     and completion.  Updates ``state`` in place; returns (state, StepInfo)."""
     state = ingest_and_segment(config, state, block, seg_poses, hsg, batch_cols)
     counter_old = state.cluster_counter
-    cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols)
+    with TRACE.span("step.association", state.device):
+        cres = associate_and_complete(config, state, block.gcol0, block.n_cols, batch_cols)
     return finish_step(config, cres, block.gcol0, block.n_cols, counter_old, slab_cols,
                        slab_head)
 
@@ -147,9 +154,11 @@ def ingest_and_segment(config: Config, state: RingState, block: ColumnBlock,
                        seg_poses: SegPoses, hsg: torch.Tensor, batch_cols: int) -> RingState:
     """The part of ``pipeline_step_block`` before association: ingest the
     block and segment the ground.  Updates ``state`` in place."""
-    state = ingest_columns(config, state, block, batch_cols)
-    return ground_segment_columns(config, state, block_segment_inputs(block, seg_poses, hsg),
-                                  batch_cols)
+    with TRACE.span("step.ingest", state.device):
+        state = ingest_columns(config, state, block, batch_cols)
+    with TRACE.span("step.ground_segmentation", state.device):
+        return ground_segment_columns(config, state,
+                                      block_segment_inputs(block, seg_poses, hsg), batch_cols)
 
 
 def block_segment_inputs(block: ColumnBlock, seg_poses: SegPoses,
@@ -167,12 +176,13 @@ def finish_step(config: Config, cres: CompleteResult, gcol0, n_cols, counter_old
     """The publish slab, join tables and packed meta of a step whose
     association returned ``cres``; returns (state, StepInfo)."""
     state = cres.state
-    slab, slab_ext = _publish_slab(config, state, cres.fu_old, slab_cols, slab_head)
-    meta = pack_meta(
-        gcol0, n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
-        counter_old, state.reset_required, state.overflow, state.cc_failed,
-        cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
-    )
+    with TRACE.span("step.finish", state.device):
+        slab, slab_ext = _publish_slab(config, state, cres.fu_old, slab_cols, slab_head)
+        meta = pack_meta(
+            gcol0, n_cols, cres.fu_old, cres.fu_new, cres.num_new_clusters,
+            counter_old, state.reset_required, state.overflow, state.cc_failed,
+            cres.cc_rounds, join_tabs=join_tables(state) if slab_cols else None,
+        )
     return state, StepInfo(meta=meta, slab=slab, slab_ext=slab_ext)
 
 
@@ -195,7 +205,8 @@ def pipeline_step(config: Config, state: RingState, batch: FiringBatch,
     to the next step (the insertion frontier is rolled back accordingly)."""
     state, gcol0, n_cols = insert_and_segment(config, state, batch, ego, batch_cols)
     counter_old = state.cluster_counter
-    cres = associate_and_complete(config, state, gcol0, n_cols, batch_cols)
+    with TRACE.span("step.association", state.device):
+        cres = associate_and_complete(config, state, gcol0, n_cols, batch_cols)
     return finish_step(config, cres, gcol0, n_cols, counter_old, slab_cols, slab_head)
 
 
@@ -206,12 +217,16 @@ def insert_and_segment(config: Config, state: RingState, batch: FiringBatch,
     column's trigger pose and the ego transform, and segment the ground.
     Updates ``state`` in place; returns (state, gcol0, n_cols)."""
     fu_before = state.first_unfinished  # -1 before the first data
-    res = insert_firings(config, state, batch)
+    dev = state.device
+    with TRACE.span("step.insertion", dev):
+        res = insert_firings(config, state, batch)
     state = res.state
-    state.first_unfinished, seg_in = frontier_and_poses(
-        fu_before, res.rearmost_per_firing, state.first_unfinished, state.reset_required,
-        batch.pose, ego, batch_cols)
-    state = ground_segment_columns(config, state, seg_in, batch_cols)
+    with TRACE.span("step.frontier", dev):
+        state.first_unfinished, seg_in = frontier_and_poses(
+            fu_before, res.rearmost_per_firing, state.first_unfinished, state.reset_required,
+            batch.pose, ego, batch_cols)
+    with TRACE.span("step.ground_segmentation", dev):
+        state = ground_segment_columns(config, state, seg_in, batch_cols)
     return state, seg_in.gcol0, seg_in.n_cols
 
 

@@ -35,6 +35,7 @@ import torch
 
 from ..config import Config
 
+from ..utils.stats import TRACE, host_bool
 from . import cc_cuda
 from .state import I32_MAX, RingState, clear_columns_chunk, ring_put, ring_read
 
@@ -230,7 +231,8 @@ def associate_and_complete(config: Config, state: RingState, gcol0, n_cols,
     """Association (CC update) and completion for one column batch; updates
     the ring and the state in place and returns the frontier results."""
     win = window_arrays(config, state, gcol0, n_cols, batch_size)
-    cc, = window_kernels(config, [win])
+    with TRACE.span("step.association.cc", state.device):
+        cc, = window_kernels(config, [win])
     return complete_association(config, state, gcol0, n_cols, batch_size, win, cc)
 
 
@@ -285,7 +287,7 @@ def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_
     # FastSV union (at most 32 rounds), then full path compression: the
     # table leaves this function fully compressed (one-hop resolve)
     slot_parent = state.slot_parent
-    changed, it = bool(edge_ok.any()), 0
+    changed, it = host_bool(edge_ok.any()), 0
     while changed and it < 32:
         ra = slot_parent[slot_parent[ea].long()]
         rb = slot_parent[slot_parent[eb].long()]
@@ -293,11 +295,12 @@ def complete_association(config: Config, state: RingState, gcol0, n_cols, batch_
         do = edge_ok & (lo != hi)
         p2 = _scatter(slot_parent, torch.where(do, hi, K), lo, "amin", K)
         p2 = p2[p2.long()]
-        changed, it = bool((p2 != slot_parent).any()), it + 1
+        changed, it = host_bool((p2 != slot_parent).any()), it + 1
         slot_parent = p2
+    TRACE.count("step.fastsv_rounds", it)
     while True:
         p2 = slot_parent[slot_parent.long()]
-        done = bool((p2 == slot_parent).all())
+        done = host_bool((p2 == slot_parent).all())
         slot_parent = p2
         if done:
             break

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..native import BUILD_DIR, compile_atomic, sources_digest
+from ..utils.stats import host_bool
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -357,7 +358,7 @@ def window_cc_reference(bits, L0, max_wp, *, H: int, V: int
             L2 = _scan_min(L2, hconn, 1)
         if vconn is not None and it >= 1:
             L2 = _scan_min(L2, vconn, 0)
-        changed, it = bool((L2 != L).any()), it + 1
+        changed, it = host_bool((L2 != L).any()), it + 1
         L = L2
     return (L, torch.tensor(not changed, device=dev),
             torch.tensor(it, dtype=torch.int32, device=dev))

@@ -38,6 +38,7 @@ from ..constants import (
     GP_FOG, GP_GROUND, GP_OBSTACLE, GP_UNKNOWN,
 )
 
+from ..utils.stats import to_device
 from .insertion import f64_round, fma32
 from .state import RingState, ring_put, ring_read
 
@@ -261,5 +262,5 @@ def ground_segment_columns(
 def _atan2_f32(y: float, x: torch.Tensor) -> torch.Tensor:
     """f32 ``atan2(y, x)`` evaluated in f64 and rounded once, so the CPU and
     the card give the same bits (their f32 atan2 may differ in the last ulp)."""
-    return torch.atan2(torch.tensor(np.float32(y), dtype=torch.float64, device=x.device),
+    return torch.atan2(to_device(np.float32(y), x.device, torch.float64),
                        x.to(torch.float64)).to(torch.float32)

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..utils.stats import to_device
 from .state import I32_MAX, RingState
 
 I32_MIN = -(2**31)
@@ -99,7 +100,7 @@ def make_firing_batch(firings, poses, size: int, num_rows: int, device) -> Firin
         return (a & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return to_device(np.ascontiguousarray(a), device)
 
     return FiringBatch(
         xyz=put(xyz), pose=put(pose_arr),
@@ -169,8 +170,8 @@ def claim_firings(config: Config, state: RingState, dist: torch.Tensor,
     R = dist.shape[0]
     F = batch.xyz.shape[0]
     dev = dist.device
-    az_width = torch.tensor(2.0 * math.pi / num_cols, dtype=torch.float32, device=dev)
-    pi32 = torch.tensor(math.pi, dtype=torch.float32, device=dev)
+    az_width = to_device(2.0 * math.pi / num_cols, dev, torch.float32)
+    pi32 = to_device(math.pi, dev, torch.float32)
     inf = float("inf")
     rows = torch.arange(R, device=dev)
 
@@ -262,7 +263,7 @@ def claim_firings(config: Config, state: RingState, dist: torch.Tensor,
         gcol = torch.stack(gcols).to(torch.int32)
         write = torch.stack(writes).reshape(-1)
         winner = write & (dist_all.reshape(-1) == dist[row_idx, lcol])
-        two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=dev)
+        two_pi = to_device(2.0 * math.pi, dev, torch.float32)
         cont_az = fma32(two_pi, (torch.stack(rots) - state.origin_rot.to(dev)).to(torch.float32),
                         inc_az)
         values = {

@@ -36,6 +36,7 @@ from pathlib import Path
 import numpy as np
 
 from .. import native
+from ..utils.stats import TRACE
 from .sensor_input import SensorInput
 
 ENCODER_TICKS_PER_REV = 90112
@@ -113,17 +114,20 @@ class OusterInput(SensorInput):
             self._native = None
 
     def on_packet(self, packet: bytes, host_stamp_ns: int) -> None:
+        TRACE.count("node.packets")
         if self._offload:
-            buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
-            self._lib.cct_offload_enqueue(
-                self._offload, buf, len(packet), ctypes.c_uint64(host_stamp_ns)
-            )
+            with TRACE.span("node.enqueue"):
+                buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
+                self._lib.cct_offload_enqueue(
+                    self._offload, buf, len(packet), ctypes.c_uint64(host_stamp_ns)
+                )
             self._poll_native()
         elif self._native:
-            buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
-            self._lib.cct_ouster_decode(
-                self._native, buf, len(packet), ctypes.c_uint64(host_stamp_ns)
-            )
+            with TRACE.span("node.enqueue"):
+                buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
+                self._lib.cct_ouster_decode(
+                    self._native, buf, len(packet), ctypes.c_uint64(host_stamp_ns)
+                )
             self._poll_native()
         else:
             self._decode_python(packet, host_stamp_ns)
@@ -139,33 +143,34 @@ class OusterInput(SensorInput):
             self._poll_native()
 
     def _poll_native(self):
-        R = self.pixels_per_column
-        max_f = self.columns_per_packet * 2
-        while True:
-            # fresh buffers every round: _emit hands out views into them
-            xyz = np.empty((max_f, R, 3), np.float32)
-            inten = np.empty((max_f, R), np.uint8)
-            stamps = np.empty((max_f, R), np.uint64)
-            if self._offload:
-                n = self._lib.cct_offload_poll(
-                    self._offload,
-                    max_f,
-                    xyz.ctypes.data_as(ctypes.c_void_p),
-                    inten.ctypes.data_as(ctypes.c_void_p),
-                    stamps.ctypes.data_as(ctypes.c_void_p),
-                )
-            else:
-                n = self._lib.cct_ouster_poll(
-                    self._native,
-                    max_f,
-                    xyz.ctypes.data_as(ctypes.c_void_p),
-                    inten.ctypes.data_as(ctypes.c_void_p),
-                    stamps.ctypes.data_as(ctypes.c_void_p),
-                )
-            for i in range(n):
-                self._emit(xyz[i], stamps[i], inten[i])
-            if n < max_f:
-                break
+        with TRACE.span("node.poll"):
+            R = self.pixels_per_column
+            max_f = self.columns_per_packet * 2
+            while True:
+                # fresh buffers every round: _emit hands out views into them
+                xyz = np.empty((max_f, R, 3), np.float32)
+                inten = np.empty((max_f, R), np.uint8)
+                stamps = np.empty((max_f, R), np.uint64)
+                if self._offload:
+                    n = self._lib.cct_offload_poll(
+                        self._offload,
+                        max_f,
+                        xyz.ctypes.data_as(ctypes.c_void_p),
+                        inten.ctypes.data_as(ctypes.c_void_p),
+                        stamps.ctypes.data_as(ctypes.c_void_p),
+                    )
+                else:
+                    n = self._lib.cct_ouster_poll(
+                        self._native,
+                        max_f,
+                        xyz.ctypes.data_as(ctypes.c_void_p),
+                        inten.ctypes.data_as(ctypes.c_void_p),
+                        stamps.ctypes.data_as(ctypes.c_void_p),
+                    )
+                for i in range(n):
+                    self._emit(xyz[i], stamps[i], inten[i])
+                if n < max_f:
+                    break
 
     def _decode_python(self, packet: bytes, host_stamp_ns: int) -> None:
         R = self.pixels_per_column

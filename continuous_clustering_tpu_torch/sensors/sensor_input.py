@@ -14,6 +14,8 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from ..utils.stats import TRACE
+
 
 class SensorInput:
     def __init__(self, num_lasers: Optional[int] = None):
@@ -41,6 +43,11 @@ class SensorInput:
         self._pending = 0
 
     def _emit(self, xyz, stamp, intensity, uidx=None) -> None:
+        TRACE.count("node.firings")
+        with TRACE.span("node.firing"):
+            self._emit_firing(xyz, stamp, intensity, uidx)
+
+    def _emit_firing(self, xyz, stamp, intensity, uidx) -> None:
         num = len(xyz)
         firing = {
             "xyz": np.asarray(xyz, np.float32).reshape(num, 3),

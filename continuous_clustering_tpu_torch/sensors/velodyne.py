@@ -21,6 +21,7 @@ import math
 import numpy as np
 
 from .. import native
+from ..utils.stats import TRACE
 from .sensor_input import SensorInput
 
 # Built-in VLP-16 vertical angles (degrees), laser-id order
@@ -128,17 +129,20 @@ class VelodyneInput(SensorInput):
 
     # ------------------------------------------------------------- decode
     def on_packet(self, packet: bytes, stamp_ns: int) -> None:
+        TRACE.count("node.packets")
         if self._offload:
-            buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
-            self._lib.cct_offload_enqueue(
-                self._offload, buf, len(packet), ctypes.c_uint64(stamp_ns)
-            )
+            with TRACE.span("node.enqueue"):
+                buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
+                self._lib.cct_offload_enqueue(
+                    self._offload, buf, len(packet), ctypes.c_uint64(stamp_ns)
+                )
             self._poll_native()
         elif self._native:
-            buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
-            self._lib.cct_velodyne_decode(
-                self._native, buf, len(packet), ctypes.c_uint64(stamp_ns)
-            )
+            with TRACE.span("node.enqueue"):
+                buf = (ctypes.c_char * len(packet)).from_buffer_copy(packet)
+                self._lib.cct_velodyne_decode(
+                    self._native, buf, len(packet), ctypes.c_uint64(stamp_ns)
+                )
             self._poll_native()
         else:
             self._decode_python(packet, stamp_ns)
@@ -158,33 +162,34 @@ class VelodyneInput(SensorInput):
             self._poll_native()
 
     def _poll_native(self):
-        R = self.num_lasers
-        max_f = 64
-        while True:
-            # fresh buffers every round: _emit hands out views into them
-            xyz = np.empty((max_f, R, 3), np.float32)
-            inten = np.empty((max_f, R), np.uint8)
-            stamps = np.empty((max_f, R), np.uint64)
-            if self._offload:
-                n = self._lib.cct_offload_poll(
-                    self._offload,
-                    max_f,
-                    xyz.ctypes.data_as(ctypes.c_void_p),
-                    inten.ctypes.data_as(ctypes.c_void_p),
-                    stamps.ctypes.data_as(ctypes.c_void_p),
-                )
-            else:
-                n = self._lib.cct_velodyne_poll(
-                    self._native,
-                    max_f,
-                    xyz.ctypes.data_as(ctypes.c_void_p),
-                    inten.ctypes.data_as(ctypes.c_void_p),
-                    stamps.ctypes.data_as(ctypes.c_void_p),
-                )
-            for i in range(n):
-                self._emit(xyz[i], stamps[i], inten[i])
-            if n < max_f:
-                break
+        with TRACE.span("node.poll"):
+            R = self.num_lasers
+            max_f = 64
+            while True:
+                # fresh buffers every round: _emit hands out views into them
+                xyz = np.empty((max_f, R, 3), np.float32)
+                inten = np.empty((max_f, R), np.uint8)
+                stamps = np.empty((max_f, R), np.uint64)
+                if self._offload:
+                    n = self._lib.cct_offload_poll(
+                        self._offload,
+                        max_f,
+                        xyz.ctypes.data_as(ctypes.c_void_p),
+                        inten.ctypes.data_as(ctypes.c_void_p),
+                        stamps.ctypes.data_as(ctypes.c_void_p),
+                    )
+                else:
+                    n = self._lib.cct_velodyne_poll(
+                        self._native,
+                        max_f,
+                        xyz.ctypes.data_as(ctypes.c_void_p),
+                        inten.ctypes.data_as(ctypes.c_void_p),
+                        stamps.ctypes.data_as(ctypes.c_void_p),
+                    )
+                for i in range(n):
+                    self._emit(xyz[i], stamps[i], inten[i])
+                if n < max_f:
+                    break
 
     # ------------------------------------------------- the NumPy twin
     # VLP-16 firing timing, microseconds (velodyne_pointcloud constants)

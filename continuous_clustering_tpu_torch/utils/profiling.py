@@ -3,14 +3,18 @@
 
 Wrap any streaming section in ``trace()`` to record host and CUDA activity
 with ``torch.profiler`` and write a Chrome trace (open it in
-``chrome://tracing`` or Perfetto); ``annotate()`` marks host-side stages so
-they line up with the device timeline.
+``chrome://tracing`` or Perfetto).  ``span()`` is a span of the program's
+registry (``utils/stats.TRACE``): while a profiler records, it opens a
+``record_function`` of its name, so the program's layers (``facade.*``,
+``step.*``, ``node.*``) line up with the device timeline on their own.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+
+from .stats import TRACE
 
 
 @contextlib.contextmanager
@@ -29,8 +33,7 @@ def trace(logdir: str = "cct_trace"):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named host annotation visible in the trace timeline."""
-    import torch
-
-    return torch.profiler.record_function(name)
+def span(name: str, device=None):
+    """A span of the program's registry: recorded always, a named range on
+    the profiler's timeline while one records."""
+    return TRACE.span(name, device)

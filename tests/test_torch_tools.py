@@ -206,10 +206,10 @@ def test_latency_bench_and_replay_raise_without_a_card(tmp_path, monkeypatch):
 
 
 def test_profiling_trace_writes_a_chrome_trace(tmp_path):
-    from continuous_clustering_tpu_torch.utils.profiling import annotate, trace
+    from continuous_clustering_tpu_torch.utils.profiling import span, trace
 
     with trace(str(tmp_path / "tr")):
-        with annotate("cct_stage"):
+        with span("cct_stage"):
             torch.ones(8).add_(1)
     events = json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "cct_stage" for e in events)
