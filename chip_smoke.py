@@ -79,17 +79,25 @@ side by side), then:
     ``make_sharded_step(device=...)`` on the same batches; then dp 1 x sp 8
     over the first 3 steps.  Every step's meta, slab and tail and every
     state field must be equal; prints ms per step of both and the device
-    kernels of one step of each under the profiler.
+    kernels of one step of each under the profiler;
+14. holds the ground segmentation kernel (``csrc/ground_segment.cu``)
+    against its twin on the card, every state field bit for bit, on a
+    host-inserted step of the KITTI configuration (64 x 416) and of the
+    VLS-128 roof preset (128 x 288), after the steps before it ran through
+    ``pipeline_step_block`` (one launch a step), and times the kernel beside
+    its byte bound and the twin.
 
-Phases 3 to 13 drive the port's paths; the kernels' launch counters are set
+Phases 3 to 14 drive the port's paths; the kernels' launch counters are set
 to 0 just before each and read just after, and each of phases 3-7 and 9-13
-must have launched K1 and K2 (phases 9, 12 and 13 once per step), phase 8
-the probe kernel.  Every phase raises on failure.  The line before the last is a JSON
-object with one entry per kernel (launches summed over phases 3-13;
+must have launched K1, K2 and the ground segmentation kernel (phases 9, 12
+and 13 K1 and K2 once per step), phase 8 the probe kernel.  Every phase
+raises on failure.  The line before the last is a JSON
+object with one entry per kernel (launches summed over phases 3-14;
 ``max_abs_err`` over every
 comparison with the twin; ``ms`` with the host's enqueue, ``device_ms``
 without; K1 and K2 on the KITTI window, the probe's slowest variant at
-upper = 21; ``bound_ms`` for the same inputs); the last line is ``{"ok": true,
+upper = 21, ground segmentation on the KITTI step; ``bound_ms`` for the
+same inputs); the last line is ``{"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": ...}}``.  Exits
 non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository.  Imports nothing of JAX or of the JAX
@@ -175,7 +183,7 @@ class Launches:
         for m in self.modules:
             m.reset_launch_counts()
 
-    def stop(self, phase: str, kernels=("edge_bits", "window_cc")):
+    def stop(self, phase: str, kernels=("edge_bits", "window_cc", "ground_segment")):
         got = {k: v for m in self.modules for k, v in m.LAUNCHES.items()}
         check(all(got[k] > 0 for k in kernels), f"{phase}: a kernel was not launched: {got}")
         for k, v in got.items():
@@ -789,6 +797,10 @@ def main() -> int:
     # ---- phase 13: device insertion into column-sharded rings ---------------
     sharded_insertion_phase(cfg, dev, launches, card)
 
+    # ---- phase 14: the ground segmentation kernel -----------------------------
+    gs = ground_segment_phase(dev, launches, card)
+    max_err["ground_segment"] = 0   # the phase raises on any bit that differs
+
     # ms: CUDA events around the launch as the host issues it, the host's
     # enqueue included; device_ms: the device's time alone
     kit, pt = k2["kitti"], probe_t[slowest]
@@ -796,20 +808,24 @@ def main() -> int:
                             kit["bounds"]["edge_bits"]),
               "window_cc": (kit["k2_host_ms"], kit["k2_ms"], kit["k2_plain_ms"],
                             kit["bounds"]["window_cc"]),
-              "sweep_probe": (pt["host_ms"], pt["device_ms"], pt["plain_ms"], pt["bounds"])}
+              "sweep_probe": (pt["host_ms"], pt["device_ms"], pt["plain_ms"], pt["bounds"]),
+              "ground_segment": (gs["kitti"]["ms"], gs["kitti"]["device_ms"],
+                                 gs["kitti"]["plain_ms"], gs["kitti"]["bounds"])}
     sources = {"edge_bits": ("continuous_clustering_tpu_torch/csrc/edge_bits.cu",
                              "continuous_clustering_tpu/ops/cc_pallas.py:444"),
                "window_cc": ("continuous_clustering_tpu_torch/csrc/window_cc.cu",
                              "continuous_clustering_tpu/ops/cc_pallas.py:202"),
                "sweep_probe": ("continuous_clustering_tpu_torch/csrc/sweep_probe.cu",
-                               "scripts/pallas_bisect.py:26")}
+                               "scripts/pallas_bisect.py:26"),
+               "ground_segment": ("continuous_clustering_tpu_torch/csrc/ground_segment.cu",
+                                  None)}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches.total[name],
          "max_abs_err": max_err[name], "ms": timing[name][0], "device_ms": timing[name][1],
          "plain_ms": timing[name][2], "bound_ms": timing[name][3]["bound_ms"],
          "bound_by": timing[name][3]["bound_by"], "library_ms": None}
-        for name in ("edge_bits", "window_cc", "sweep_probe")]}))
+        for name in ("edge_bits", "window_cc", "sweep_probe", "ground_segment")]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, builds included")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1511,6 +1527,93 @@ def sharded_insertion_phase(cfg, dev, launches, card, n_rev=1, sp8_steps=3):
     print(f"phase 13: {card}: dp 1 x sp 8 ({rc // 8} columns a shard) over the first "
           f"{sp8_steps} steps: {ms8:.2f} ms/step; state and meta equal; launches {got8}")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s in all")
+
+
+def copy_state(state):
+    """A copy of every tensor of ``state`` (the ring is updated in place)."""
+    return dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
+                                         for f in dataclasses.fields(state)})
+
+
+def ground_segment_bound(state, seg_in, B: int, fog: bool) -> dict:
+    """Least time of one segmentation step: each ring cell of the segmented
+    columns read once (x, y, z, distance, inclination, gcol, and intensity
+    with fog filtering) and written once (both labels, is_ignored,
+    inclination, gcol, and cont_az of the NaN cells), the per-column poses
+    (15 f32) and the inclination carry in and out.  No operation bound: a
+    few tens of f32 operations a cell are below the bytes' time."""
+    import torch
+
+    from continuous_clustering_tpu_torch.ops.state import ring_read
+
+    R, n = state.num_rows, int(seg_in.n_cols)
+    dist = ring_read(state.distance, seg_in.gcol0 % state.ring_cols, B)[:, :n]
+    cells = R * n
+    nbytes = cells * (6 * 4 + 4 * fog + 2 * 4 + 1 + 2 * 4) + int(torch.isnan(dist).sum()) * 4
+    return bound(nbytes + B * 15 * 4 + 2 * R * 4, 0)
+
+
+def ground_segment_phase(dev, launches, card):
+    """Phase 14: the ground segmentation kernel against its twin on the card
+    at the main path's shapes, the KITTI configuration (64 x 2200, firing
+    batch 384, B = 416) and the VLS-128 roof preset (128 x 1700, batch 256,
+    B = 288).  A revolution of each scene is host-inserted on the card; the
+    steps before its middle run through ``pipeline_step_block``; the middle
+    block is ingested and then segmented from two copies of one state, by
+    the kernel and by the twin: every state field equal, bit for bit.
+    Returns per shape the kernel's CUDA-event medians (with the host's
+    enqueue, and the device's alone), the twin's, and the byte bound."""
+    import torch
+
+    from continuous_clustering_tpu_torch.config import kitti_config, vls128_roof_config
+    from continuous_clustering_tpu_torch.models.step import (block_segment_inputs,
+                                                             pipeline_step_block)
+    from continuous_clustering_tpu_torch.ops.ground_segmentation import (
+        ground_segment_columns, ground_segment_columns_reference)
+    from continuous_clustering_tpu_torch.ops.ingest import ingest_columns
+    from continuous_clustering_tpu_torch.ops.state import init_state
+    from continuous_clustering_tpu_torch.tools import bench_setup
+
+    hsg = torch.tensor(bench_setup.HSG, device=dev)
+    out = {}
+    for name, cfg, rows, batch in (("kitti", kitti_config(), FULL_ROWS, B_FIRINGS),
+                                   ("vls128", vls128_roof_config(), 128, 256)):
+        n_cols = cfg.range_image.num_columns
+        pipe = make_facade(cfg, rows, dev, batch)
+        blocks, segps = bench_setup._insert_revolution(
+            pipe, kitti_stream(rows, n_cols, 1), n_cols)
+        B, mid = pipe._batch_B, len(blocks) // 2
+        state = init_state(cfg, rows, dev)
+        launches.start()
+        for blk, segp in zip(blocks[:mid], segps[:mid]):
+            state, _ = pipeline_step_block(cfg, state, blk, segp, hsg, B)
+        got = launches.stop(f"phase 14 {name}", kernels=("ground_segment",))
+        check(got["ground_segment"] == mid, f"phase 14 {name}: {got} launches over {mid} steps")
+        state = ingest_columns(cfg, state, blocks[mid], B)
+        seg_in = block_segment_inputs(blocks[mid], segps[mid], hsg)
+        kern = ground_segment_columns(cfg, copy_state(state), seg_in, B)
+        plain = ground_segment_columns_reference(cfg, copy_state(state), seg_in, B)
+        torch.cuda.synchronize()
+        differ = [f.name for f in dataclasses.fields(plain)
+                  if not torch.equal(*(t.view(torch.int32) if t.dtype == torch.float32 else t
+                                       for t in (getattr(kern, f.name), getattr(plain, f.name))))]
+        check(not differ, f"phase 14 {name}: the kernel differs from the twin in {differ}")
+        scratch = copy_state(state)
+        t = dict(
+            device_ms=median_ms(lambda: ground_segment_columns(cfg, scratch, seg_in, B),
+                                device_only=True),
+            ms=median_ms(lambda: ground_segment_columns(cfg, scratch, seg_in, B)),
+            plain_ms=median_ms(lambda: ground_segment_columns_reference(cfg, scratch, seg_in, B),
+                               n=5),
+            bounds=ground_segment_bound(state, seg_in, B,
+                                        cfg.ground_segmentation.fog_filtering_enabled))
+        out[name] = t
+        print(f"phase 14: {card}: {name} {rows} x {B} (n_cols {int(seg_in.n_cols)}), step "
+              f"{mid}: kernel equals the twin in every field; kernel {t['ms']:.4f} ms with "
+              f"the enqueue, {t['device_ms']:.4f} device; twin {t['plain_ms']:.2f} ms; bound "
+              f"{t['bounds']['bound_ms'] * 1e3:.3f} us ({t['bounds']['bytes']:,} B, "
+              f"{100 * t['bounds']['bound_ms'] / t['device_ms']:.2f} % at device time)")
+    return out
 
 
 def serpentine_firings():

@@ -1,6 +1,8 @@
 """The two hand-written Hopper kernels of association, their wrappers, their
 plain PyTorch twins and their launch counters, and the build of every
-kernel source of the port (``csrc/*.cu``).
+kernel source of the port (``csrc/*.cu``; ground segmentation's kernel,
+``csrc/ground_segment.cu``, has its wrapper and twin in
+``ops/ground_segmentation.py`` and its count in ``LAUNCHES`` here).
 
 * K1 ``edge_bits`` (``csrc/edge_bits.cu``) replaces ``edge_bits_pallas``
   (``continuous_clustering_tpu/ops/cc_pallas.py``): wedge neighbour search
@@ -52,7 +54,7 @@ MAX_ROUNDS = 64
 # windows one K2 launch takes (its change masks are one 32-bit word)
 MAX_STACKED_WINDOWS = 32
 
-LAUNCHES = {"edge_bits": 0, "window_cc": 0}
+LAUNCHES = {"edge_bits": 0, "window_cc": 0, "ground_segment": 0}
 _KLIB: Optional[ctypes.CDLL] = None
 
 
@@ -103,6 +105,8 @@ def load_kernels() -> ctypes.CDLL:
         lib.cct_window_cc.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.cct_sweep_probe.restype = ctypes.c_int
         lib.cct_sweep_probe.argtypes = [i] + [p] * 4 + [i] * 5 + [p]
+        lib.cct_ground_segment.restype = ctypes.c_int
+        lib.cct_ground_segment.argtypes = [p] * 3 + [i] * 3 + [p]
         _KLIB = lib
     return _KLIB
 

@@ -1,11 +1,14 @@
 """Ground point segmentation over a batch of columns (port of
 ``continuous_clustering_tpu/ops/ground_segmentation.py``).
 
-The two ``lax.scan`` passes over rows become Python loops over the R rows,
-vectorized across the B columns of the batch; the cross-column forward fill
-of the inclination diffs is a ``cummax`` of valid positions.  On the card
-the row loops cost a few thousand small launches per step; a fused kernel is
-a later change.
+``ground_segment_columns`` launches one hand-written CUDA kernel a step on
+the card (``csrc/ground_segment.cu``: one thread per column walks the rows,
+the cross-column forward fill of the inclination diffs in the same launch)
+and takes the plain twin, ``ground_segment_columns_reference``, on the CPU.
+The twin is the JAX module's algorithm written with PyTorch: its two
+``lax.scan`` passes over rows become Python loops over the R rows,
+vectorized across the B columns of the batch, and the forward fill a
+``cummax`` of valid positions.  The kernel equals the twin bit for bit.
 
 Exact against the JAX package's CPU build, on the CPU and on the card: XLA's
 CPU compiler fuses two f32 multiply-adds that feed comparisons, and the
@@ -25,6 +28,7 @@ XLA does not fuse, and equals the JAX CPU build as it is written.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -39,6 +43,7 @@ from ..constants import (
 )
 
 from ..utils.stats import to_device
+from . import cc_cuda
 from .insertion import f64_round, fma32
 from .state import RingState, ring_put, ring_read
 
@@ -92,7 +97,103 @@ def ground_segment_columns(
     config: Config, state: RingState, inputs: SegmentInputs, batch_size: int
 ) -> RingState:
     """Segment columns [gcol0, gcol0 + n_cols) and write the results to the
-    ring in place."""
+    ring in place.  A CUDA state launches the kernel or raises; a CPU state
+    takes the plain twin."""
+    if state.device.type == "cpu":
+        return ground_segment_columns_reference(config, state, inputs, batch_size)
+    if state.device.type != "cuda":
+        raise ValueError(f"ground_segment_columns: unsupported device {state.device}")
+    return _ground_segment_kernel(config, state, inputs, batch_size)
+
+
+# ring fields the kernel reads or writes, in the order of its pointers
+_RING_FIELDS = (("x", torch.float32), ("y", torch.float32), ("z", torch.float32),
+                ("distance", torch.float32), ("intensity", torch.int32),
+                ("inclination", torch.float32), ("cont_az", torch.float32),
+                ("gcol", torch.int32), ("ground_label", torch.int32),
+                ("debug_label", torch.int32), ("is_ignored", torch.bool))
+
+
+def _check_strided(t: torch.Tensor, name: str, shape, device) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected f32 {tuple(shape)} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _kernel_params(config: Config, inputs: SegmentInputs):
+    """The kernel's thresholds (each rounded to f32 by ctypes, as a tensor
+    compared with a Python float rounds it) and its integer arguments: the
+    switches and the element strides of the per-column poses."""
+    g, cl, ri = config.ground_segmentation, config.clustering, config.range_image
+    if not isinstance(g.fog_filtering_intensity_below, int):
+        raise ValueError("ground_segment: fog_filtering_intensity_below must be an int "
+                         "(the intensity plane is i32)")
+    floats = (g.max_slope, g.first_ring_as_ground_min_allowed_z_diff,
+              g.first_ring_as_ground_max_allowed_z_diff, g.last_ground_point_slope_higher_than,
+              g.last_ground_point_distance_smaller_than,
+              g.ground_because_close_to_last_certain_ground_max_z_diff,
+              g.ground_because_close_to_last_certain_ground_max_dist_diff,
+              g.obstacle_because_next_certain_obstacle_max_dist_diff,
+              g.length_ref_to_front_end, g.length_ref_to_rear_end, g.width_ref_to_left_mirror,
+              g.width_ref_to_right_mirror, g.height_ref_to_maximum, g.height_ref_to_ground,
+              g.fog_filtering_distance_below, g.fog_filtering_inclination_above,
+              cl.max_distance, 2.0 * math.pi / ri.num_columns)
+    flags = (1 * ri.supplement_inclination_angle_for_nan_cells
+             | 2 * g.fog_filtering_enabled | 4 * g.use_terrain
+             | 8 * cl.ignore_points_with_too_big_inclination_angle_diff
+             | 16 * cl.ignore_points_in_chessboard_pattern)
+    ints = (g.fog_filtering_intensity_below, ri.num_columns, flags,
+            *inputs.sensor_pos.stride(), *inputs.ego_rot.stride(), *inputs.ego_trans.stride())
+    return (ctypes.c_float * len(floats))(*floats), (ctypes.c_int * len(ints))(*ints)
+
+
+def _ground_segment_kernel(config: Config, state: RingState, inputs: SegmentInputs,
+                           B: int) -> RingState:
+    """One launch of ``csrc/ground_segment.cu`` over the step's columns.
+    Allocates the outputs that replace ``incl_diffs`` and ``overflow`` (the
+    scalars are replaced, never mutated) and the (2, R, B) scratch; reads
+    nothing back."""
+    R, rc, dev = state.num_rows, state.ring_cols, state.device
+    if not 1 <= B <= rc:
+        raise ValueError(f"ground_segment: batch of {B} columns on a ring of {rc}")
+    for name, dtype in _RING_FIELDS:
+        cc_cuda.check_tensor(getattr(state, name), name, dtype, (R, rc), dev)
+    for name, t, dtype in (("gcol0", inputs.gcol0, torch.int32),
+                           ("n_cols", inputs.n_cols, torch.int32),
+                           ("origin_rot", state.origin_rot, torch.int32),
+                           ("height_sensor_to_ground", inputs.height_sensor_to_ground,
+                            torch.float32),
+                           ("overflow", state.overflow, torch.bool)):
+        cc_cuda.check_tensor(t, name, dtype, (), dev)
+    cc_cuda.check_tensor(state.incl_diffs, "incl_diffs", torch.float32, (R,), dev)
+    _check_strided(inputs.sensor_pos, "sensor_pos", (B, 3), dev)
+    _check_strided(inputs.ego_rot, "ego_rot", (B, 3, 3), dev)
+    _check_strided(inputs.ego_trans, "ego_trans", (B, 3), dev)
+    scratch = torch.empty((2, R, B), dtype=torch.float32, device=dev)
+    incl_out = torch.empty((R,), dtype=torch.float32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    tensors = [getattr(state, name) for name, _ in _RING_FIELDS] + [
+        inputs.gcol0, inputs.n_cols, state.origin_rot, inputs.sensor_pos, inputs.ego_rot,
+        inputs.ego_trans, inputs.height_sensor_to_ground, state.incl_diffs, incl_out,
+        state.overflow, overflow, scratch]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    fparams, iparams = _kernel_params(config, inputs)
+    lib = cc_cuda.load_kernels()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cct_ground_segment(ptrs, fparams, iparams, R, B, rc, stream)
+    cc_cuda.raise_on_error(err, "ground_segment")
+    cc_cuda.LAUNCHES["ground_segment"] += 1
+    state.incl_diffs = incl_out
+    state.overflow = overflow
+    return state
+
+
+def ground_segment_columns_reference(
+    config: Config, state: RingState, inputs: SegmentInputs, batch_size: int
+) -> RingState:
+    """Plain PyTorch twin of the kernel: segment columns [gcol0, gcol0 +
+    n_cols) and write the results to the ring in place."""
     R, B, rc = state.num_rows, batch_size, state.ring_cols
     dev = state.device
     num_cols = config.range_image.num_columns

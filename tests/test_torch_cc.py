@@ -127,7 +127,7 @@ def test_wrappers_route_cpu_tensors_to_the_twins(window):
     max_wp = torch.where(win.active_w[:, kw["H"]:], win.wp, 0).max().reshape(1)
     L, ok, _ = cc_cuda.window_cc(bits, win.L0, max_wp, **kw)
     assert bool(ok) and L.dtype == torch.int32
-    assert cc_cuda.LAUNCHES == {"edge_bits": 0, "window_cc": 0}
+    assert cc_cuda.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         cc_cuda.edge_bits(*[a.to("meta") for a in args], **_kw(cfg))
     with pytest.raises(ValueError, match="unsupported device"):

@@ -32,11 +32,14 @@ from continuous_clustering_tpu.ops.ground_segmentation import SegmentInputs as J
 from continuous_clustering_tpu.ops.ground_segmentation import (
     ground_segment_columns as jax_ground_segment)
 from continuous_clustering_tpu.ops.state import init_state as jax_init
+from continuous_clustering_tpu_torch.constants import (GP_EGO_VEHICLE, GP_FOG, GP_GROUND,
+                                                        GP_OBSTACLE)
 from continuous_clustering_tpu_torch.convert import (config_from_dataclass, state_from_numpy,
                                                       state_to_numpy)
 from continuous_clustering_tpu_torch.ops.ground_segmentation import (
     SegmentInputs, ego_frame, ground_segment_columns, xy_distance)
 
+from .ground_cases import SWITCHES, segment_case, with_switches
 from .test_torch_step import assert_states_equal, jax_state_numpy, one_torch_thread  # noqa: F401
 
 R_RAND, B_RAND = 400, 512        # 204,800 random inputs per expression
@@ -215,3 +218,32 @@ def test_segmentation_on_edge_inputs_equals_jax_cpu(case):
     labels = np.asarray(want.debug_label)[:, :B] if case == "slope" else np.asarray(
         want.ground_label)[:, :B]
     assert len(np.unique(labels[R - 2 if case == "slope" else R - 1])) > 1
+
+
+@pytest.mark.parametrize("switches", list(SWITCHES))
+@pytest.mark.parametrize("rows", [16, 32, 128])
+def test_twin_equals_jax_cpu_under_switches(rows, switches):
+    """Whole steps of ray-cast columns under each switch combination (the
+    KITTI preset; fog filtering on; terrain on, supplied inclination off,
+    chessboard on, inclination gate off): a window that wraps the ring's
+    end, n_cols < B, NaN cells and columns, ego-box points, a carry with NaN
+    entries, and at 32 rows stale cells of an older revolution (overflow)."""
+    cfg = with_switches(kitti_config(), switches)
+    cfg = dataclasses.replace(cfg, range_image=dataclasses.replace(cfg.range_image,
+                                                                   num_columns=220))
+    B, n_cols = 72, 60
+    cells, extra, inp = segment_case(cfg, rows, B, n_cols, seed=rows, overflow=rows == 32)
+    js = jax_init(cfg, rows)
+    js = dataclasses.replace(js, **{k: jnp.asarray(v) for k, v in {**cells, **extra}.items()})
+    jin = JaxSegmentInputs(**{k: jnp.asarray(v) for k, v in inp.items()})
+    want = jax.jit(lambda s: jax_ground_segment(cfg, s, jin, B))(js)
+    ts = state_from_numpy(jax_state_numpy(js), "cpu")
+    tin = SegmentInputs(**{k: torch.from_numpy(np.array(v)) for k, v in inp.items()})
+    got = ground_segment_columns(config_from_dataclass(cfg), ts, tin, B)
+    want_np = jax_state_numpy(want)
+    assert_states_equal(want_np, state_to_numpy(got), f"{switches}, {rows} rows")
+    # the case reaches the labels its switches decide
+    labels = set(np.unique(want_np["ground_label"]).tolist())
+    assert {GP_GROUND, GP_OBSTACLE, GP_EGO_VEHICLE} <= labels
+    assert (GP_FOG in labels) == (switches == "fog")
+    assert bool(want_np["overflow"]) == (rows == 32)

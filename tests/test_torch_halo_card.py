@@ -68,7 +68,7 @@ def test_halo_step_on_the_card_equals_the_unsharded_step():
         ref, rinfo = pipeline_step_block(cfg, ref, blk, segp, hsg, B, 128, 64)
         cc_cuda.reset_launch_counts()
         sh, info = run(sh, blk, segp, hsg)
-        assert cc_cuda.LAUNCHES == {"edge_bits": 1, "window_cc": 1}, k
+        assert cc_cuda.LAUNCHES == {"edge_bits": 1, "window_cc": 1, "ground_segment": 1}, k
         for a, b in zip(info, rinfo):
             assert torch.equal(a, b), f"step {k}"
     whole = gather_state(sh)
@@ -123,7 +123,8 @@ def test_sharded_insertion_on_the_card_equals_the_unsharded_step():
         one, oinfo = one_run(one, batch, calib)
         cc_cuda.reset_launch_counts()
         sh, info = run(sh, batch, calib)
-        assert cc_cuda.LAUNCHES == {"edge_bits": 1, "window_cc": 1}, k
+        # ground segmentation once per stream
+        assert cc_cuda.LAUNCHES == {"edge_bits": 1, "window_cc": 1, "ground_segment": 2}, k
         for a, b in zip(info, oinfo):
             assert torch.equal(a, b), f"step {k}"
     assert int(one.ring_start.min()) > 0 and int(oinfo.gcol0.min()) + B > 880

@@ -11,12 +11,15 @@ real association windows of two synthetic streams at 32 x 220, batch 48
 (a KITTI-like scene and the throughput runs' ``near_field`` scene), and
 the synthetic windows of ``tools/cc_windows.py``: dense random edge words,
 one at R = 128, B = 512, and a snake that runs into the round cap.  The
+ground segmentation kernel runs on ray-cast steps of ``ground_cases.py``
+against its twin, every state field bit for bit.  The
 stacked launches (several windows in one launch, as the multi-sensor step
 makes them) must equal each window's own launch and twin, the round counts
 of windows that converge after different numbers of rounds included.  The
 probe variants run on their own inputs at upper 1, 7 and 21, and those that
 read no bits at upper 300, past the padded width.  Tolerance: bits,
-labels, the converged flag, the round count and the probe outputs exact.
+labels, the converged flag, the round count, the probe outputs and the
+segmented state exact.
 """
 
 from __future__ import annotations
@@ -220,3 +223,99 @@ def test_sweep_probe_shift_wraps_past_the_padded_width(name):
     upper = torch.tensor(300, dtype=torch.int32, device="cuda")
     got = sweep_probe(name, bits, upper, L)
     assert torch.equal(got, sweep_probe_reference(name, bits, upper, L))
+
+
+# ground segmentation: (preset, switches, rows, B, n_cols, stale cells); every
+# window wraps the ring's end and holds NaN cells and columns, every carry NaN
+# entries.  The main path's shapes (KITTI 64 x 416, the VLS-128 node 128 x
+# 288, OS-32 with its fog filtering 32 x 160), the other switches, n_cols of
+# 0 and 1, overflow, and B past one tile of 512 threads.
+GROUND_CASES = {
+    "kitti-64x416": ("kitti", "preset", 64, 416, 416, False),
+    "vls128-128x288": ("vls128_roof", "preset", 128, 288, 250, False),
+    "os32-fog-32x160": ("os32", "preset", 32, 160, 160, False),
+    "terrain-64x416": ("kitti", "terrain", 64, 416, 300, False),
+    "n0": ("kitti", "preset", 64, 416, 0, False),
+    "n1": ("kitti", "preset", 64, 416, 1, False),
+    "overflow": ("kitti", "preset", 64, 416, 200, True),
+    "tiles-16x1500": ("kitti", "fog", 16, 1500, 1400, False),
+}
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("case", list(GROUND_CASES))
+def test_ground_segment_kernel_matches_plain(case):
+    """The kernel against the twin on the card, every state field bit for
+    bit (the ring fields it writes, ``incl_diffs`` and ``overflow`` among
+    them); the poses are views of one packed (B, 15) buffer, as the facade
+    uploads them."""
+    _card()
+    from continuous_clustering_tpu_torch.config import PRESETS
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.ops.ground_segmentation import (
+        SegmentInputs, ground_segment_columns, ground_segment_columns_reference)
+    from continuous_clustering_tpu_torch.ops.state import init_state
+
+    from .ground_cases import segment_case, with_switches
+
+    preset, switches, R, B, n_cols, stale = GROUND_CASES[case]
+    cfg = with_switches(PRESETS[preset](), switches)
+    cells, extra, inp = segment_case(cfg, R, B, n_cols, seed=R + B + n_cols, overflow=stale)
+
+    def state():
+        st = init_state(cfg, R, "cuda")
+        for name, a in cells.items():
+            getattr(st, name).copy_(torch.from_numpy(a))
+        st.incl_diffs = torch.from_numpy(extra["incl_diffs"]).cuda()
+        st.origin_rot = torch.tensor(extra["origin_rot"], device="cuda")
+        return st
+
+    packed = torch.from_numpy(np.concatenate(
+        [inp["sensor_pos"], inp["ego_rot"].reshape(B, 9), inp["ego_trans"]], 1)).cuda()
+    tin = SegmentInputs(
+        gcol0=torch.tensor(inp["gcol0"], device="cuda"),
+        n_cols=torch.tensor(inp["n_cols"], device="cuda"),
+        sensor_pos=packed[:, 0:3], ego_rot=packed[:, 3:12].reshape(B, 3, 3),
+        ego_trans=packed[:, 12:15],
+        height_sensor_to_ground=torch.tensor(inp["height_sensor_to_ground"], device="cuda"))
+    before = cc_cuda.LAUNCHES["ground_segment"]
+    got = ground_segment_columns(cfg, state(), tin, B)
+    assert cc_cuda.LAUNCHES["ground_segment"] == before + 1
+    want = ground_segment_columns_reference(cfg, state(), tin, B)
+    torch.cuda.synchronize()
+    assert cc_cuda.LAUNCHES["ground_segment"] == before + 1
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert a.device == b.device and torch.equal(_bits(a), _bits(b)), f"{case}: {f.name}"
+    assert bool(got.overflow) == stale
+    if n_cols == 0:
+        assert torch.equal(_bits(got.incl_diffs), _bits(torch.from_numpy(extra["incl_diffs"]).cuda()))
+
+
+def test_ground_segment_launches_once_a_step_on_the_card():
+    """A host-insertion stream through the facade on the card launches the
+    kernel once a step: the registry's launch count equals its steps."""
+    _card()
+    from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
+    from continuous_clustering_tpu_torch.ops import cc_cuda
+    from continuous_clustering_tpu_torch.utils.stats import TRACE
+
+    cfg = kitti_config()
+    cfg = cfg.replace(range_image=dataclasses.replace(
+        cfg.range_image, num_columns=220, ring_buffer_revolutions=4))
+    pipe = ContinuousClustering(cfg, firing_batch_size=48, device="cuda")
+    pipe.reset(32)
+    pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
+    scene = make_scene(num_boxes=12, seed=3, spread=15.0)
+    xyz, _ = raycast_frame(scene, num_rows=32, num_columns=220, seed=3)
+    cc_cuda.reset_launch_counts()
+    TRACE.clear()
+    for f in frame_to_firings(xyz):
+        pipe.add_firing(f, np.eye(4))
+    pipe.flush()
+    snap = TRACE.snapshot()
+    assert snap["steps"] == pipe.n_steps > 3
+    assert snap["launches"]["ground_segment"] == pipe.n_steps

@@ -147,7 +147,7 @@ def test_multi_sensor_step_matches_jax_and_single_streams(case):
     assert published > 0 and not bool(tstate.overflow.any())
     assert (merged > 0) == (case == "merging")
     # on the CPU the wrappers take the twins: nothing is launched
-    assert cc_cuda.LAUNCHES == {"edge_bits": 0, "window_cc": 0}
+    assert cc_cuda.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0}
 
     final = state_to_numpy(tstate)
     for s in range(S):

@@ -116,7 +116,7 @@ def test_host_syncs_count_every_device_to_host_read(monkeypatch, one_torch_threa
     """``facade.host_syncs`` over a host-insertion stream equals the reads
     of tensor values into the host that a tally of torch's own read methods
     sees: every read goes through ``to_host``/``host_bool``, which count it
-    once."""
+    once.  On the CPU the ground segmentation kernel is never launched."""
     tally = {"n": 0}
 
     def counted(name):
@@ -140,6 +140,7 @@ def test_host_syncs_count_every_device_to_host_read(monkeypatch, one_torch_threa
     assert syncs >= 3 * pipe.n_steps
     assert w["counts"]["step.cc_rounds"] >= pipe.n_steps
     assert w["counts"]["facade.uploads"] >= pipe.n_steps
+    assert stats.TRACE.snapshot()["launches"]["ground_segment"] == 0
 
 
 @pytest.mark.parametrize("insertion", ["host", "device"])
