@@ -187,15 +187,24 @@ def interpolate(transforms: List[StampedPose], stamp: int) -> StampedPose:
     if i == 0:
         return StampedPose(stamp, transforms[0].pose)
     before, after = transforms[i - 1], transforms[i]
-    f = (stamp - before.stamp) / (after.stamp - before.stamp)
     q0 = _mat_to_quat(before.pose[:3, :3])
     q1 = _mat_to_quat(after.pose[:3, :3])
+    return StampedPose(stamp, slerp_pose(stamp, before, q0, after, q1))
+
+
+def slerp_pose(stamp: int, before: StampedPose, q0: np.ndarray, after: StampedPose,
+               q1: np.ndarray) -> np.ndarray:
+    """The 4x4 pose at ``stamp`` between ``before`` and ``after`` (stamped
+    ``before.stamp < stamp <= after.stamp``), whose rotations' quaternions
+    are ``q0`` and ``q1`` (``_mat_to_quat``): slerp of the rotation, linear
+    translation."""
+    f = (stamp - before.stamp) / (after.stamp - before.stamp)
     q = _slerp(q0, q1, f)
     t = (1 - f) * before.pose[:3, 3] + f * after.pose[:3, 3]
     pose = np.eye(4)
     pose[:3, :3] = _quat_to_mat(q)
     pose[:3, 3] = t
-    return StampedPose(stamp, pose)
+    return pose
 
 
 def _mat_to_quat(m: np.ndarray) -> np.ndarray:

@@ -24,6 +24,7 @@ package's.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import shutil
@@ -40,6 +41,7 @@ from continuous_clustering_tpu.io.node import ClusteringNode as JaxClusteringNod
 from continuous_clustering_tpu_torch import launch
 from continuous_clustering_tpu_torch.config import Config, GroundSegmentationConfig, kitti_config
 from continuous_clustering_tpu_torch.convert import config_from_dataclass, state_to_numpy
+from continuous_clustering_tpu_torch.evaluation import kitti_loader as kl
 from continuous_clustering_tpu_torch.evaluation.partition import partition_agreement
 from continuous_clustering_tpu_torch.evaluation.synthetic import make_scene, raycast_frame
 from continuous_clustering_tpu_torch.io import publish_utils
@@ -154,6 +156,128 @@ def test_transform_synchronizer_equals_jax():
     assert [m for m, _ in out["port"]] == [m for m, _ in out["jax"]] and out["port"]
     for (_, a), (_, b) in zip(out["port"], out["jax"]):
         np.testing.assert_array_equal(a, b)
+
+
+class ListSynchronizer:
+    """The synchronizer as it was before its history was indexed: every
+    release calls ``kitti_loader.interpolate`` over the whole pose list."""
+
+    def __init__(self, wait_for_tf=True, buffer_length=1000):
+        self.wait_for_tf = wait_for_tf
+        self._poses = []
+        self._queue = collections.deque(maxlen=buffer_length)
+        self._cb = None
+
+    def set_callback(self, cb):
+        self._cb = cb
+
+    def reset(self, clear_poses=False):
+        if clear_poses:
+            self._poses.clear()
+        self._queue.clear()
+
+    def add_transform(self, stamp, pose):
+        self._poses.append(kl.StampedPose(stamp, np.asarray(pose, np.float64)))
+        if len(self._poses) > 10000:
+            del self._poses[:5000]
+        self._drain()
+
+    def add_message(self, stamp, msg):
+        if not self.wait_for_tf:
+            if self._poses and self._cb:
+                self._cb(msg, self._poses[-1].pose)
+            return
+        self._queue.append((stamp, msg))
+        self._drain()
+
+    def _drain(self):
+        while self._queue and self._poses and self._poses[-1].stamp >= self._queue[0][0]:
+            stamp, msg = self._queue.popleft()
+            pose = kl.interpolate(self._poses, stamp).pose
+            if self._cb:
+                self._cb(msg, pose)
+
+
+def random_pose(rng):
+    """A rotation about a random axis by up to 180 degrees (both branches
+    of the quaternion from a matrix, both of the slerp) and a translation."""
+    q = rng.normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    pose = np.eye(4)
+    pose[:3, :3] = [[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                    [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                    [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]]
+    pose[:3, 3] = rng.normal(size=3) * 10
+    return pose
+
+
+def sync_stream(case, rng):
+    """(wait_for_tf, events): ("tf", stamp, pose), ("msg", stamp, id) and
+    ("reset", clear_poses, None) in the order they are fed."""
+    ev = []
+    if case == "cut":
+        # 12,000 poses cross the 10,000 -> 5,000 cut; between them messages,
+        # some stamped before the oldest pose the cut keeps
+        pose = np.eye(4)
+        for k in range(12_000):
+            if k % 50 == 0:
+                pose = random_pose(rng)
+            ev.append(("tf", 10**9 + 1000 * k, pose))
+            if k % 5 == 4:
+                ev.append(("msg", 10**9 + 1000 * k - int(rng.integers(0, 4000)), k))
+            if k % 997 == 0:
+                ev.append(("msg", 10**9 + 1000 * (k - 6000), -k))
+        return True, ev
+    stamps = 10**9 + 1000 * np.arange(40)
+    if case == "unordered":
+        stamps = stamps + rng.integers(-2500, 2500, 40)   # out of order
+        stamps[5:9] = stamps[4]                             # repeated stamps
+        stamps[20:23] = stamps[30]
+    for k, s in enumerate(stamps):
+        ev.append(("tf", int(s), random_pose(rng)))
+        if case == "edges":
+            ev.append(("msg", 10**9 - 500 * k, ("before", k)))  # before the oldest pose
+            ev.append(("msg", int(s), ("on", k)))               # on a pose's stamp
+            ev.append(("msg", int(s) + 700, ("after", k)))      # after the newest pose
+        else:
+            ev.append(("msg", int(s) - int(rng.integers(-500, 5000)), k))
+        if case == "resets" and k % 6 == 5:
+            ev.append(("reset", k % 12 == 11, None))
+    return case != "no_wait", ev
+
+
+def run_sync(cls, wait_for_tf, events):
+    """(the event at which each message was released, the message, its pose)."""
+    sync, got, at = cls(wait_for_tf=wait_for_tf), [], [0]
+    sync.set_callback(lambda msg, pose: got.append((at[0], msg, pose.copy())))
+    for at[0], (kind, a, b) in enumerate(events):
+        if kind == "tf":
+            sync.add_transform(a, b)
+        elif kind == "msg":
+            sync.add_message(a, b)
+        else:
+            sync.reset(clear_poses=a)
+    return got
+
+
+@pytest.mark.parametrize("case", ["cut", "edges", "unordered", "resets", "no_wait"])
+def test_indexed_pose_history_releases_what_interpolate_does(case):
+    """The indexed history releases the same messages, at the same calls,
+    with poses bit-equal to ``interpolate`` over the pose list; a short
+    stream also equals the JAX synchronizer."""
+    from continuous_clustering_tpu.io.transform_synchronizer import \
+        TransformSynchronizer as JaxSync
+
+    wait_for_tf, events = sync_stream(case, np.random.default_rng(17))
+    got = run_sync(TransformSynchronizer, wait_for_tf, events)
+    refs = [run_sync(ListSynchronizer, wait_for_tf, events)]
+    if case != "cut":
+        refs.append(run_sync(JaxSync, wait_for_tf, events))
+    assert len(got) > 20
+    for ref in refs:
+        assert [(a, m) for a, m, _ in got] == [(a, m) for a, m, _ in ref]
+        for (_, _, p), (_, _, r) in zip(got, ref):
+            np.testing.assert_array_equal(p, r)
 
 
 def test_stats_recording():

@@ -24,6 +24,7 @@ from ccbench import harness
 from continuous_clustering_tpu_torch.config import kitti_config
 from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firings, make_scene,
                                                                   raycast_frame)
+from continuous_clustering_tpu_torch.io.node import ClusteringNode
 from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
 from continuous_clustering_tpu_torch.utils import stats
 
@@ -185,6 +186,37 @@ def test_step_layers_are_user_annotations_under_the_profiler(insertion, one_torc
     assert set(want) <= marked, set(want) - marked
     assert {"facade.batch", "facade.upload", "facade.meta_wait"} <= marked
     assert stats.TRACE.profiler_started_ns is not None
+
+
+def test_node_counts_its_pose_lookups(one_torch_thread):
+    """``node.tf_lookups`` counts the firings the node's transform
+    synchronizer releases, ``node.tf_history`` the length of the pose
+    history each of those lookups searched."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to build the native insertion library")
+    node = ClusteringNode(small_config(), sensor_manufacturer="generic_points",
+                          firing_batch_size=64, device="cpu")
+    sync, histories = node.tf_sync, []
+    release = sync._cb
+
+    def counted(firing, pose):
+        histories.append(len(sync._poses))
+        release(firing, pose)
+
+    sync.set_callback(counted)
+    xyz, _ = raycast_frame(make_scene(num_boxes=8, seed=3, spread=20.0), num_rows=ROWS,
+                           num_columns=COLS)
+    stats.TRACE.clear()
+    for c in range(2 * COLS):
+        stamp = 10**9 + c * 400_000
+        if c % 3 == 0:                  # a pose for every third firing
+            node.on_transform(stamp + 1, np.eye(4))
+        node.on_points(xyz[c % COLS], stamp)
+    node.flush()
+    counts = stats.TRACE.window(0)["counts"]
+    assert len(histories) > COLS and histories[-1] > histories[0]
+    assert counts["node.tf_lookups"] == len(histories)
+    assert counts["node.tf_history"] == sum(histories)
 
 
 # ------------------------------------------------------- the benchmark's readers
