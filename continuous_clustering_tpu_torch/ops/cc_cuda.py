@@ -1,8 +1,7 @@
-"""The two hand-written Hopper kernels of association, their wrappers, their
-plain PyTorch twins and their launch counters, and the build of every
-kernel source of the port (``csrc/*.cu``; ground segmentation's kernel,
-``csrc/ground_segment.cu``, has its wrapper and twin in
-``ops/ground_segmentation.py`` and its count in ``LAUNCHES`` here).
+"""The two hand-written Hopper kernels of association, their wrappers and
+their plain PyTorch twins, and the build of every kernel source of the port
+(``csrc/*.cu``; ground segmentation's kernel, ``csrc/ground_segment.cu``,
+has its wrapper and twin in ``ops/ground_segmentation.py``).
 
 * K1 ``edge_bits`` (``csrc/edge_bits.cu``) replaces ``edge_bits_pallas``
   (``continuous_clustering_tpu/ops/cc_pallas.py``): wedge neighbour search
@@ -25,7 +24,7 @@ The wrapper rule: a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain twin.  The twins are the JAX package's XLA formulations
 (``association._edge_bits`` XLA branch, ``_window_cc_vectorized`` with the
 shipped scan schedule), one window each; the stacked twins loop them over
-the windows.  ``LAUNCHES`` counts kernel launches only.
+the windows.  Each launch is counted in ``utils/stats.LAUNCHES``.
 
 The kernels are built with ``nvcc`` for ``sm_90a`` at first use into
 ``continuous_clustering_tpu_torch/build/`` (plain C interface, ctypes), one
@@ -44,7 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..native import BUILD_DIR, compile_atomic, sources_digest
-from ..utils.stats import host_bool
+from ..utils.stats import LAUNCHES, host_bool
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,13 +53,7 @@ MAX_ROUNDS = 64
 # windows one K2 launch takes (its change masks are one 32-bit word)
 MAX_STACKED_WINDOWS = 32
 
-LAUNCHES = {"edge_bits": 0, "window_cc": 0, "ground_segment": 0}
 _KLIB: Optional[ctypes.CDLL] = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def kernel_library_path() -> Path:

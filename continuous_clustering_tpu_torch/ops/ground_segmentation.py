@@ -42,7 +42,7 @@ from ..constants import (
     GP_FOG, GP_GROUND, GP_OBSTACLE, GP_UNKNOWN,
 )
 
-from ..utils.stats import to_device
+from ..utils.stats import LAUNCHES, to_device
 from . import cc_cuda
 from .insertion import f64_round, fma32
 from .state import RingState, ring_put, ring_read
@@ -183,7 +183,7 @@ def _ground_segment_kernel(config: Config, state: RingState, inputs: SegmentInpu
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cct_ground_segment(ptrs, fparams, iparams, R, B, rc, stream)
     cc_cuda.raise_on_error(err, "ground_segment")
-    cc_cuda.LAUNCHES["ground_segment"] += 1
+    LAUNCHES["ground_segment"] += 1
     state.incl_diffs = incl_out
     state.overflow = overflow
     return state

@@ -31,14 +31,15 @@ The wrapper rule of the port: a CUDA tensor launches the kernel
 (``csrc/sweep_probe.cu``: one block on one SM, each thread owning the same
 <= 5 cells in every step, the labels in registers and in shared memory
 twice, the mask bits unpacked into shared memory before the first step) or
-raises; a CPU tensor takes the plain twin.  ``LAUNCHES`` counts kernel
-launches only.
+raises; a CPU tensor takes the plain twin.  Each launch is counted in
+``utils/stats.LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.stats import LAUNCHES
 from .cc_cuda import check_tensor, load_kernels, raise_on_error
 
 # the script's module constants
@@ -49,11 +50,6 @@ VARIANTS = {
     "V3i_i32_mask": 4, "V4_mask_scratch": 5, "V5_cmp_astype_prefix": 6, "V6_bitpack": 7,
 }
 DR_IDX = (0, 17, 34)        # range(0, 2V + 1, 17) at V = 20
-LAUNCHES = {"sweep_probe": 0}
-
-
-def reset_launch_counts() -> None:
-    LAUNCHES["sweep_probe"] = 0
 
 
 def padded_width(H: int, WCOL: int) -> int:

@@ -15,8 +15,8 @@ packet entry point (``ClusteringNode.on_raw_data``) without a sensor.
 Frames come from ``evaluation.synthetic.raycast_frame`` at the decoder's
 own beam inclinations, so every ray lands in the row it was cast for.
 Packet ``p`` is stamped ``t0_ns`` plus the time its first firing (or
-column) takes to come round at ``rpm``.  Used by ``chip_smoke.py`` phase 10
-and the node tests.
+column) takes to come round at ``rpm``.  Used by the node tests, on the CPU
+and on the card (``tests/test_torch_node_card.py``).
 """
 
 from __future__ import annotations

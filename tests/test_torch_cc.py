@@ -29,6 +29,7 @@ from continuous_clustering_tpu_torch.convert import config_from_dataclass, state
 from continuous_clustering_tpu_torch.ops import cc_cuda
 from continuous_clustering_tpu_torch.ops.association import window_arrays
 from continuous_clustering_tpu_torch.tools import cc_windows
+from continuous_clustering_tpu_torch.utils import stats
 
 from .test_torch_step import (jax_pre_association, jax_state_numpy,  # noqa: F401
                               one_torch_thread, scene_frames, serpentine_frames,
@@ -120,14 +121,15 @@ def test_wrappers_route_cpu_tensors_to_the_twins(window):
     """A CPU tensor takes the plain twin and launches nothing; a tensor on
     another device type is refused."""
     cfg, win = window["cfg"], window["win"]
-    cc_cuda.reset_launch_counts()
+    stats.reset_launch_counts()
     args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
     bits = cc_cuda.edge_bits(*args, **_kw(cfg))
     kw = {k: v for k, v in _kw(cfg).items() if k != "max_d2"}
     max_wp = torch.where(win.active_w[:, kw["H"]:], win.wp, 0).max().reshape(1)
     L, ok, _ = cc_cuda.window_cc(bits, win.L0, max_wp, **kw)
     assert bool(ok) and L.dtype == torch.int32
-    assert cc_cuda.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0}
+    assert stats.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0,
+                              "sweep_probe": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         cc_cuda.edge_bits(*[a.to("meta") for a in args], **_kw(cfg))
     with pytest.raises(ValueError, match="unsupported device"):

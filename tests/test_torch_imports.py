@@ -4,10 +4,11 @@ JAX package ``continuous_clustering_tpu``, and none reads a path inside it.
 The machine with the GPU has no JAX, and the port keeps its own copies of
 what it shares with the JAX package (configuration, constants, point-cloud
 schemas, synthetic scenes, the oracle, the C++ host sources).  So every
-module of ``continuous_clustering_tpu_torch`` and ``chip_smoke.py`` must
-import in a process where neither ``jax`` nor ``continuous_clustering_tpu``
-(or any of its submodules) enters ``sys.modules``, and no source of the port
-names the JAX package in an import or a path.
+module of ``continuous_clustering_tpu_torch``, ``chip_smoke.py`` and the card's
+timing script ``scripts/kernel_times.py`` must import in a process where
+neither ``jax`` nor ``continuous_clustering_tpu`` (or any of its submodules)
+enters ``sys.modules``, and no source of the port names the JAX package in
+an import or a path.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ def port_modules():
 
 
 def port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "scripts" / "kernel_times.py"]
     assert len(files) > 20
     return files
 
@@ -57,6 +59,8 @@ def test_every_port_module_imports_without_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import kernel_times\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', {JAX_PKG!r}))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"

@@ -7,12 +7,13 @@ and the CUDA toolkit:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 (``--noconftest``: the suite's conftest configures JAX).  The windows are
-real association windows of two synthetic streams at 32 x 220, batch 48
-(a KITTI-like scene and the throughput runs' ``near_field`` scene), and
-the synthetic windows of ``tools/cc_windows.py``: dense random edge words,
+real association windows of two synthetic streams at 32 x 220, 64 x 2200
+and 128 x 1700 (``tools/cc_windows.py``: a KITTI-like scene and the
+throughput runs' ``near_field`` scene), and the synthetic windows of
+``tools/cc_windows.py``: dense random edge words,
 one at R = 128, B = 512, and a snake that runs into the round cap.  The
 ground segmentation kernel runs on ray-cast steps of ``ground_cases.py``
-against its twin, every state field bit for bit.  The
+and host-inserted steps against its twin, every state field bit for bit.  The
 stacked launches (several windows in one launch, as the multi-sensor step
 makes them) must equal each window's own launch and twin, the round counts
 of windows that converge after different numbers of rounds included.  The
@@ -33,6 +34,7 @@ import torch
 from continuous_clustering_tpu_torch.config import kitti_config
 from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firings, make_scene,
                                                                   raycast_frame)
+from continuous_clustering_tpu_torch.utils.stats import LAUNCHES, reset_launch_counts
 
 pytestmark = pytest.mark.cuda
 
@@ -42,40 +44,47 @@ def _card():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
 
 
-def _stream_window(firings):
-    """The association window after ``firings`` on the card."""
-    from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
-    from continuous_clustering_tpu_torch.ops.association import window_arrays
+# (preset, rows, columns, firing batch)
+WINDOW_SIZES = {
+    "32x220": ("kitti", 32, 220, 48),
+    "64x2200": ("kitti", 64, 2200, 384),
+    "vls128-128x1700": ("vls128_roof", 128, 1700, 256),
+}
 
-    cfg = kitti_config()
-    cfg = cfg.replace(range_image=dataclasses.replace(
-        cfg.range_image, num_columns=220, ring_buffer_revolutions=4))
-    pipe = ContinuousClustering(cfg, firing_batch_size=48, device="cuda")
-    pipe.reset(32)
-    pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
-    for f in firings:
-        pipe.add_firing(f, np.eye(4))
-    B = 48 + 32
-    win = window_arrays(cfg, pipe.state, pipe.state.first_unfinished - B,
-                        torch.tensor(B, dtype=torch.int32, device="cuda"), B)
-    return cfg, win
+
+@pytest.fixture(scope="module", params=list(WINDOW_SIZES))
+def size(request):
+    _card()
+    from continuous_clustering_tpu_torch.config import PRESETS
+
+    preset, rows, cols, batch = WINDOW_SIZES[request.param]
+    cfg = PRESETS[preset]()
+    if cols == 220:
+        cfg = cfg.replace(range_image=dataclasses.replace(
+            cfg.range_image, num_columns=cols, ring_buffer_revolutions=4))
+    assert cfg.range_image.num_columns == cols
+    return cfg, rows, batch
 
 
 @pytest.fixture(scope="module")
-def window():
-    _card()
-    scene = make_scene(num_boxes=12, seed=3, spread=15.0)
-    xyz, _ = raycast_frame(scene, num_rows=32, num_columns=220, seed=3)
-    return _stream_window(frame_to_firings(xyz)[:180])
+def window(size):
+    from continuous_clustering_tpu_torch.tools.cc_windows import stream_firings, stream_window
+
+    cfg, rows, batch = size
+    cols = cfg.range_image.num_columns
+    if cols == 220:
+        firings, stops = stream_firings(rows, cols, 1, seed=3, num_boxes=12, spread=15.0), [180]
+    else:
+        firings, stops = stream_firings(rows, cols, 2), [3 * cols // 2]
+    return cfg, stream_window(cfg, rows, batch, firings, stops)
 
 
 @pytest.fixture(scope="module")
-def near_field_window():
-    _card()
-    from continuous_clustering_tpu_torch.tools.bench_setup import make_bench_scene
+def near_field_window(size):
+    from continuous_clustering_tpu_torch.tools.cc_windows import near_field_window
 
-    firings, _ = make_bench_scene(32, 220, "near_field")
-    return _stream_window(firings[:180])
+    cfg, rows, batch = size
+    return cfg, near_field_window(cfg, rows, batch)
 
 
 def _edge_bits_check(cfg, win):
@@ -85,9 +94,9 @@ def _edge_bits_check(cfg, win):
     md = np.float32(cl.max_distance)
     args = (win.xw, win.yw, win.zw, win.incw, win.active_w, win.mad, win.wp)
     kw = dict(H=cl.max_steps_in_row, V=cl.max_steps_in_column, max_d2=float(md * md))
-    before = cc_cuda.LAUNCHES["edge_bits"]
+    before = LAUNCHES["edge_bits"]
     bits = cc_cuda.edge_bits(*args, **kw)
-    assert cc_cuda.LAUNCHES["edge_bits"] == before + 1
+    assert LAUNCHES["edge_bits"] == before + 1
     ref = cc_cuda.edge_bits_reference(*args, **kw)
     torch.cuda.synchronize()
     assert int((ref != 0).sum()) > 0
@@ -98,9 +107,9 @@ def _edge_bits_check(cfg, win):
 def _window_cc_check(bits, L0, max_wp, H, V, converged=True):
     from continuous_clustering_tpu_torch.ops import cc_cuda
 
-    before = cc_cuda.LAUNCHES["window_cc"]
+    before = LAUNCHES["window_cc"]
     L, ok, rounds = cc_cuda.window_cc(bits, L0, max_wp, H=H, V=V)
-    assert cc_cuda.LAUNCHES["window_cc"] == before + 1
+    assert LAUNCHES["window_cc"] == before + 1
     L_ref, ok_ref, rounds_ref = cc_cuda.window_cc_reference(bits, L0, max_wp, H=H, V=V)
     torch.cuda.synchronize()
     assert torch.equal(L, L_ref)
@@ -161,10 +170,10 @@ def test_stacked_edge_bits_match_each_window(window, near_field_window):
     kw = dict(H=cl.max_steps_in_row, V=cl.max_steps_in_column, max_d2=float(md * md))
     wins = (win, near_field_window[1])
     fields = ("xw", "yw", "zw", "incw", "active_w", "mad", "wp")
-    before = cc_cuda.LAUNCHES["edge_bits"]
+    before = LAUNCHES["edge_bits"]
     bits = cc_cuda.edge_bits_stacked(*(torch.stack([getattr(w, f) for w in wins])
                                        for f in fields), **kw)
-    assert cc_cuda.LAUNCHES["edge_bits"] == before + 1
+    assert LAUNCHES["edge_bits"] == before + 1
     for s, w in enumerate(wins):
         assert torch.equal(bits[s], _edge_bits_check(cfg, w))
 
@@ -183,9 +192,9 @@ def test_stacked_window_cc_matches_each_window():
             cc_windows.random_window(64, 416, H, V, density=0.01, seed=2)]
     bits, L0, max_wp = (torch.cat([w[i][None] if i < 2 else w[i] for w in wins]).cuda()
                         for i in range(3))
-    before = cc_cuda.LAUNCHES["window_cc"]
+    before = LAUNCHES["window_cc"]
     L, ok, rounds = cc_cuda.window_cc_stacked(bits, L0, max_wp, H=H, V=V)
-    assert cc_cuda.LAUNCHES["window_cc"] == before + 1
+    assert LAUNCHES["window_cc"] == before + 1
     torch.cuda.synchronize()
     assert ok.tolist() == [True, False, True] and rounds[1] == cc_cuda.MAX_ROUNDS
     assert len(set(rounds.tolist())) == 3
@@ -204,10 +213,10 @@ def test_sweep_probe_kernels_match_plain(upper):
     from continuous_clustering_tpu_torch.ops import sweep_probe
     from continuous_clustering_tpu_torch.tools.sweep_probe import run
 
-    before = sweep_probe.LAUNCHES["sweep_probe"]
+    before = LAUNCHES["sweep_probe"]
     results = run("cuda", seed=upper, uppers=(upper,))
     assert results == [(name, "OK", 0) for name in sweep_probe.VARIANTS]
-    assert sweep_probe.LAUNCHES["sweep_probe"] == before + len(sweep_probe.VARIANTS)
+    assert LAUNCHES["sweep_probe"] == before + len(sweep_probe.VARIANTS)
 
 
 @pytest.mark.parametrize("name", ["V2_dynamic_roll", "V5_cmp_astype_prefix", "V6_bitpack"])
@@ -246,7 +255,16 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-@pytest.mark.parametrize("case", list(GROUND_CASES))
+# host-inserted steps of a KITTI-like stream at the main path's shapes
+# (``tools/cc_windows.segment_step``): (preset, rows, firing batch), B =
+# batch + 32
+STREAM_CASES = {
+    "kitti-stream-64x416": ("kitti", 64, 384),
+    "vls128-stream-128x288": ("vls128_roof", 128, 256),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUND_CASES) + list(STREAM_CASES))
 def test_ground_segment_kernel_matches_plain(case):
     """The kernel against the twin on the card, every state field bit for
     bit (the ring fields it writes, ``incl_diffs`` and ``overflow`` among
@@ -254,39 +272,51 @@ def test_ground_segment_kernel_matches_plain(case):
     uploads them."""
     _card()
     from continuous_clustering_tpu_torch.config import PRESETS
-    from continuous_clustering_tpu_torch.ops import cc_cuda
     from continuous_clustering_tpu_torch.ops.ground_segmentation import (
         SegmentInputs, ground_segment_columns, ground_segment_columns_reference)
-    from continuous_clustering_tpu_torch.ops.state import init_state
+    from continuous_clustering_tpu_torch.ops.state import copy_state, init_state
 
     from .ground_cases import segment_case, with_switches
 
-    preset, switches, R, B, n_cols, stale = GROUND_CASES[case]
-    cfg = with_switches(PRESETS[preset](), switches)
-    cells, extra, inp = segment_case(cfg, R, B, n_cols, seed=R + B + n_cols, overflow=stale)
+    if case in STREAM_CASES:
+        from continuous_clustering_tpu_torch.tools.cc_windows import segment_step
 
-    def state():
-        st = init_state(cfg, R, "cuda")
-        for name, a in cells.items():
-            getattr(st, name).copy_(torch.from_numpy(a))
-        st.incl_diffs = torch.from_numpy(extra["incl_diffs"]).cuda()
-        st.origin_rot = torch.tensor(extra["origin_rot"], device="cuda")
-        return st
+        preset, rows, batch = STREAM_CASES[case]
+        cfg = PRESETS[preset]()
+        reset_launch_counts()
+        streamed, tin, B, steps = segment_step(cfg, rows, batch)
+        assert steps >= 2 and LAUNCHES["ground_segment"] == steps
+        n_cols, stale = None, False
 
-    packed = torch.from_numpy(np.concatenate(
-        [inp["sensor_pos"], inp["ego_rot"].reshape(B, 9), inp["ego_trans"]], 1)).cuda()
-    tin = SegmentInputs(
-        gcol0=torch.tensor(inp["gcol0"], device="cuda"),
-        n_cols=torch.tensor(inp["n_cols"], device="cuda"),
-        sensor_pos=packed[:, 0:3], ego_rot=packed[:, 3:12].reshape(B, 3, 3),
-        ego_trans=packed[:, 12:15],
-        height_sensor_to_ground=torch.tensor(inp["height_sensor_to_ground"], device="cuda"))
-    before = cc_cuda.LAUNCHES["ground_segment"]
+        def state():
+            return copy_state(streamed)
+    else:
+        preset, switches, R, B, n_cols, stale = GROUND_CASES[case]
+        cfg = with_switches(PRESETS[preset](), switches)
+        cells, extra, inp = segment_case(cfg, R, B, n_cols, seed=R + B + n_cols, overflow=stale)
+
+        def state():
+            st = init_state(cfg, R, "cuda")
+            for name, a in cells.items():
+                getattr(st, name).copy_(torch.from_numpy(a))
+            st.incl_diffs = torch.from_numpy(extra["incl_diffs"]).cuda()
+            st.origin_rot = torch.tensor(extra["origin_rot"], device="cuda")
+            return st
+
+        packed = torch.from_numpy(np.concatenate(
+            [inp["sensor_pos"], inp["ego_rot"].reshape(B, 9), inp["ego_trans"]], 1)).cuda()
+        tin = SegmentInputs(
+            gcol0=torch.tensor(inp["gcol0"], device="cuda"),
+            n_cols=torch.tensor(inp["n_cols"], device="cuda"),
+            sensor_pos=packed[:, 0:3], ego_rot=packed[:, 3:12].reshape(B, 3, 3),
+            ego_trans=packed[:, 12:15],
+            height_sensor_to_ground=torch.tensor(inp["height_sensor_to_ground"], device="cuda"))
+    before = LAUNCHES["ground_segment"]
     got = ground_segment_columns(cfg, state(), tin, B)
-    assert cc_cuda.LAUNCHES["ground_segment"] == before + 1
+    assert LAUNCHES["ground_segment"] == before + 1
     want = ground_segment_columns_reference(cfg, state(), tin, B)
     torch.cuda.synchronize()
-    assert cc_cuda.LAUNCHES["ground_segment"] == before + 1
+    assert LAUNCHES["ground_segment"] == before + 1
     for f in dataclasses.fields(want):
         a, b = getattr(got, f.name), getattr(want, f.name)
         assert a.device == b.device and torch.equal(_bits(a), _bits(b)), f"{case}: {f.name}"
@@ -300,7 +330,6 @@ def test_ground_segment_launches_once_a_step_on_the_card():
     kernel once a step: the registry's launch count equals its steps."""
     _card()
     from continuous_clustering_tpu_torch.models.continuous_clustering import ContinuousClustering
-    from continuous_clustering_tpu_torch.ops import cc_cuda
     from continuous_clustering_tpu_torch.utils.stats import TRACE
 
     cfg = kitti_config()
@@ -311,7 +340,7 @@ def test_ground_segment_launches_once_a_step_on_the_card():
     pipe.set_transform_robot_frame_from_sensor_frame(np.eye(4))
     scene = make_scene(num_boxes=12, seed=3, spread=15.0)
     xyz, _ = raycast_frame(scene, num_rows=32, num_columns=220, seed=3)
-    cc_cuda.reset_launch_counts()
+    reset_launch_counts()
     TRACE.clear()
     for f in frame_to_firings(xyz):
         pipe.add_firing(f, np.eye(4))

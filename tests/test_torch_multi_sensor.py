@@ -41,11 +41,11 @@ from continuous_clustering_tpu.parallel.multi_sensor import make_sharded_step as
 from continuous_clustering_tpu.parallel.multi_sensor import stacked_init as jax_stacked_init
 from continuous_clustering_tpu_torch.convert import config_from_dataclass, state_to_numpy
 from continuous_clustering_tpu_torch.models.step import META_CC_ROUNDS, EgoCalibration, pipeline_step
-from continuous_clustering_tpu_torch.ops import cc_cuda
 from continuous_clustering_tpu_torch.ops.insertion import FiringBatch
 from continuous_clustering_tpu_torch.ops.state import init_state
 from continuous_clustering_tpu_torch.parallel.multi_sensor import (make_sharded_step,
                                                                    stacked_init, stream_state)
+from continuous_clustering_tpu_torch.utils import stats
 
 from continuous_clustering_tpu_torch.evaluation.synthetic import (frame_to_firings, make_scene,
                                                                   raycast_frame)
@@ -125,7 +125,7 @@ def test_multi_sensor_step_matches_jax_and_single_streams(case):
     tstate = stacked_init(tcfg, num_rows, S, "cpu")
     trun = make_sharded_step(tcfg, B, device="cpu")
     tcal = stack([torch_calib() for _ in range(S)])
-    cc_cuda.reset_launch_counts()
+    stats.reset_launch_counts()
     metas, published, merged = [], 0, 0
     for k in range(n_steps):
         sbatch = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *[st[k][0] for st in streams])
@@ -147,7 +147,8 @@ def test_multi_sensor_step_matches_jax_and_single_streams(case):
     assert published > 0 and not bool(tstate.overflow.any())
     assert (merged > 0) == (case == "merging")
     # on the CPU the wrappers take the twins: nothing is launched
-    assert cc_cuda.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0}
+    assert stats.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0,
+                              "sweep_probe": 0}
 
     final = state_to_numpy(tstate)
     for s in range(S):

@@ -25,6 +25,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from continuous_clustering_tpu_torch.ops import sweep_probe as sp
 from continuous_clustering_tpu_torch.tools import sweep_probe as tool
+from continuous_clustering_tpu_torch.utils import stats
 
 from .test_torch_step import one_torch_thread  # noqa: F401
 
@@ -88,11 +89,12 @@ def test_twin_equals_interpret_mode_pallas(name, upper, seed):
 
 
 def test_tool_runs_the_twins_on_the_cpu(capsys):
-    sp.reset_launch_counts()
+    stats.reset_launch_counts()
     assert tool.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines == [f"{name}: OK" for name in KERNELS]
-    assert sp.LAUNCHES["sweep_probe"] == 0
+    assert stats.LAUNCHES == {"edge_bits": 0, "window_cc": 0, "ground_segment": 0,
+                              "sweep_probe": 0}
 
 
 def test_wrapper_refuses_other_devices_and_names():
